@@ -1,0 +1,36 @@
+"""etcd-tpu's device data plane in PyTorch, for CUDA on NVIDIA Hopper.
+
+The same layout and function names as ``etcd_tpu`` (the JAX package,
+which stays the reference the port is held against), for the pieces
+ported so far:
+
+    crc/        CRC32-Castagnoli host digest and GF(2) algebra (copies)
+    ops/        batched raw CRC (hand-written CUDA kernel + its plain
+                torch version), chain verify, quorum commit index
+    raft/       the [G]-batched Raft engine (``batched.py``)
+    parallel/   the fused single-card data-plane step
+    entry.py    example inputs and the entry point of that step
+    csrc/       CUDA C++ sources, built with nvcc at first use
+
+The package imports neither ``jax`` nor ``etcd_tpu``.  Entry points run
+on CUDA unless the caller asks for the CPU (the tests do); without CUDA
+they raise rather than fall back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.5.0-alpha+cuda"
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless ``device``
+    names another.  Raises if CUDA was meant and is absent: a run on
+    the CPU is only ever one the caller asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "etcd_tpu_torch: CUDA is not available; pass device='cpu' "
+            "to run the plain torch versions on the CPU")
+    return dev
