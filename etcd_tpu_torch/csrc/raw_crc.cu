@@ -26,10 +26,13 @@
 //     the same kernel.
 //
 // Bound on one H100 SXM (3.35 TB/s, 1,979 int8 TOP/s).  At the slice's
-// shape, N = 1,048,576 and L = 384, the kernel must read 403 MB of rows
-// and write 8 MB of int64 states: 0.12 ms at the memory rate.  The int8
-// tensor-core form of the same contraction (2 N 8L 32 = 2.1e11 ops) would
-// take 0.10 ms, so the function is bound by bytes.  This kernel does not
+// shape, N = 1,048,576 and L = 384, the function must read 403 MB of
+// rows and 12 KB of packed C and write 4 MB of uint32 states: 0.121 ms
+// at the memory rate.  The int8 tensor-core form of the same contraction
+// (2 N 8L 32 = 2.1e11 ops) would take 0.10 ms, so the function is bound
+// by bytes.  This kernel writes its states as int64 (8 MB, the port's
+// carrier for uint32) and reads 48 KB of nibble tables: about 1% more
+// traffic than the bound counts, a known cost.  This kernel does not
 // use the tensor cores: its fold costs about 8 integer instructions a
 // byte, some 3e9 in all, which at Hopper's integer rate (132 SMs x 64
 // lanes x ~1.7 GHz, ~1.4e13/s) is ~0.2 ms, so it is likely bound by the

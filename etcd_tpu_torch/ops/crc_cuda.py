@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .crc_device import (
+from .crc_bits import (
     _contribution_f32,
     _from_bits32,
     _unpack_bits,

@@ -34,33 +34,18 @@ import functools
 import numpy as np
 import torch
 
-from ..crc import crc32c as _host
 from ..crc import gf2
+from .crc_bits import (  # noqa: F401  (re-exported under the JAX names)
+    _from_bits32,
+    _to_bits32,
+    _unpack_bits,
+    contribution_matrix,
+)
+from .crc_cuda import raw_crc_cuda, raw_crc_plain
 
 _MASK32 = 0xFFFFFFFF
 
 # -- host-side constant construction ----------------------------------------
-
-
-@functools.lru_cache(maxsize=16)
-def contribution_matrix(length: int) -> np.ndarray:
-    """``[8*length, 32]`` int8 matrix C: bits(row) @ C == raw CRC.
-
-    Row ``8*i + k`` is the raw-CRC contribution of bit ``k`` (LSB
-    first) of byte ``i`` (byte 0 = leftmost / most-padded position).
-    Built by walking positions right-to-left with an accumulated
-    zero-byte operator, so construction is O(L) 32x32 GF(2) matmuls.
-    """
-    t8 = np.zeros((32, 8), dtype=np.uint8)
-    for k in range(8):
-        t8[:, k] = gf2.to_bits(np.uint32(_host.TABLE[1 << k]))
-    c = np.zeros((8 * length, 32), dtype=np.int8)
-    acc = gf2.identity()  # Z^(L-1-i) as i walks right-to-left
-    for i in range(length - 1, -1, -1):
-        block = gf2.matmul(acc, t8)  # [32, 8]
-        c[8 * i:8 * i + 8, :] = block.T
-        acc = gf2.matmul(gf2.Z1, acc)
-    return c
 
 
 @functools.lru_cache(maxsize=4)
@@ -86,12 +71,6 @@ def _invert_table(max_len: int) -> np.ndarray:
 
 
 # The same constants, uploaded once per (shape, device).
-
-
-@functools.lru_cache(maxsize=32)
-def _contribution_f32(length: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(
-        contribution_matrix(length).astype(np.float32)).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -121,29 +100,6 @@ def u32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-# -- device bit helpers ------------------------------------------------------
-
-
-def _to_bits32(x: torch.Tensor) -> torch.Tensor:
-    """uint32 values (int64) [...,] -> int8 bits [..., 32] (LSB first)."""
-    bit32 = torch.arange(32, dtype=torch.int64, device=x.device)
-    return ((x[..., None] >> bit32) & 1).to(torch.int8)
-
-
-def _from_bits32(bits: torch.Tensor) -> torch.Tensor:
-    """0/1 bits [..., 32] of any number type -> int64 uint32 values."""
-    bit32 = torch.arange(32, dtype=torch.int64, device=bits.device)
-    return (bits.to(torch.int64) << bit32).sum(dim=-1)
-
-
-def _unpack_bits(buf: torch.Tensor) -> torch.Tensor:
-    """uint8 [N, L] -> int8 [N, 8L], LSB-first within each byte."""
-    n, length = buf.shape
-    shifts = torch.arange(8, dtype=torch.uint8, device=buf.device)
-    bits = (buf[:, :, None] >> shifts) & 1
-    return bits.reshape(n, 8 * length).to(torch.int8)
-
-
 # -- core ops ----------------------------------------------------------------
 
 
@@ -155,8 +111,6 @@ def raw_crc_batch(buf: torch.Tensor) -> torch.Tensor:
     the plain torch version; any other launches the CUDA kernel, which
     raises where it cannot run.
     """
-    from .crc_cuda import raw_crc_cuda, raw_crc_plain
-
     if buf.device.type == "cpu":
         return raw_crc_plain(buf)
     return raw_crc_cuda(buf)
