@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the raw-CRC kernel from ``etcd_tpu_torch/csrc`` with nvcc, holds
-it bit for bit against its plain torch version, then drives the port's
-main path, ``etcd_tpu_torch.parallel.data_plane_step``, at full size:
-1,048,576 WAL records of 256-380 bytes in 384-byte rows (BASELINE config
-1, "1M x 256B entries", in bench.py's 1M x 384 batch) and 100,000 Raft
-groups x 5 members with 64 log slots (config 4, bench.py C4_GROUPS and
-``MultiRaft(g, m=5, cap=64)``).  It checks the step against the same
-step with the plain CRC, and that corrupted records are flagged.
+Builds the port's kernels from ``etcd_tpu_torch/csrc`` with nvcc (one
+nvcc per source, all at once) and holds each bit for bit against its
+plain torch version.  Then it drives two paths at full size:
 
-Prints, on its last lines: one JSON line with the kernel's launches,
-error and times, the card's name and power limit, and then
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
-when CUDA is absent or any phase fails.
+1. the main path, ``etcd_tpu_torch.parallel.data_plane_step``: 1,048,576
+   WAL records of 256-380 bytes in 384-byte rows (BASELINE config 1,
+   "1M x 256B entries", in bench.py's 1M x 384 batch) and 100,000 Raft
+   groups x 5 members with 64 log slots (config 4, bench.py C4_GROUPS
+   and ``MultiRaft(g, m=5, cap=64)``).  It checks the step against the
+   same step with the plain CRC, and that corrupted records are flagged;
+2. the raw-CRC variant race (``etcd_tpu_torch.scripts.
+   crc_variants_bench``) on the same records, seed-injected, every
+   variant gated by the full chain verify, and the kernels' tile and
+   operand-type sweep (``etcd_tpu_torch.scripts.kernel_sweep``) on
+   [2^20, 384] random rows.
+
+Each path is driven with the kernels' launch counts set to 0 just
+before it and read just after.  Prints, on its last lines: one JSON
+line with every kernel's launches, error and times, the card's name and
+power limit, and then ``{"ok": true, "device": {...}}``.  Exits
+non-zero, with no result, when CUDA is absent or any phase fails.
 """
 
 from __future__ import annotations
@@ -25,28 +33,30 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from etcd_tpu_torch.crc import crc32c, gf2  # noqa: E402
 from etcd_tpu_torch.entry import group_args  # noqa: E402
-from etcd_tpu_torch.ops import crc_cuda  # noqa: E402
+from etcd_tpu_torch.obs import roofline  # noqa: E402
+from etcd_tpu_torch.ops import crc_cuda, planes_cuda  # noqa: E402
 from etcd_tpu_torch.ops.crc_device import (  # noqa: E402
     chain_verify_device, u32_tensor)
 from etcd_tpu_torch.parallel import data_plane_step  # noqa: E402
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
+from etcd_tpu_torch.scripts import (  # noqa: E402
+    crc_variants_bench, kernel_sweep)
+from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 
 N, WIDTH, LEN_LO, LEN_HI = 1 << 20, 384, 256, 380
 G, M, CAP = 100_000, 5, 64
 SEED_VAL = 0xDEADBEEF
 DATA_SEED = 20261016
-# One H100 SXM (NVIDIA data sheet): HBM rate, int8 tensor-core rate.
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1979e12
-_MASK32 = 0xFFFFFFFF
+RACE_ITERS = 8
+SWEEP_K = 12
 
 
 def check(ok, what: str) -> None:
@@ -54,66 +64,23 @@ def check(ok, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-# -- host data, vectorised ---------------------------------------------------
+def build_all() -> list:
+    """Build every kernel source at once, one nvcc each."""
+    sources = (crc_cuda.SOURCE, planes_cuda.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as ex:
+        futures = [ex.submit(crc_cuda.build, src) for src in sources]
+        return [f.result() for f in futures]
 
 
-def raw_crcs(buf: np.ndarray) -> np.ndarray:
-    """Raw CRC32C state of every right-aligned row: a column-serial walk
-    of the byte table over all rows at once (uint32 [N])."""
-    table = crc32c.TABLE
-    s = np.zeros(buf.shape[0], np.uint32)
-    for col in np.ascontiguousarray(buf.T):
-        s = table[(s ^ col) & 0xFF] ^ (s >> 8)
-    return s
+def reset_launches() -> None:
+    for fn in (crc_cuda.raw_crc_cuda, planes_cuda.planes_crc_cuda):
+        fn.launches = 0
+        fn.launches_by = dict.fromkeys(fn.launches_by, 0)
 
 
-def _shift_tables(length: int) -> list[list[int]]:
-    """t[k][b] = Z^length @ (b << 8k): Z^length applied to a 32-bit state
-    as four byte lookups."""
-    z = gf2.zero_operator(length)
-    cols = gf2.from_bits(z.T)  # word j = image of state bit j
-    b = np.arange(256, dtype=np.uint32)
-    out = []
-    for k in range(4):
-        t = np.zeros(256, np.uint32)
-        for m in range(8):
-            t ^= np.where((b >> m) & 1, cols[8 * k + m], np.uint32(0))
-        out.append([int(x) for x in t])
-    return out
-
-
-def chain(raw: np.ndarray, lens: np.ndarray, seed_val: int) -> np.ndarray:
-    """The WAL's rolling CRC chain, stored[i] = update(stored[i-1],
-    data_i) with stored[-1] = seed_val, from the raw CRCs:
-    update(p, m) = Z^len(m) (p ^ ~0) ^ raw(m) ^ ~0, folded in order."""
-    tabs = {int(l): _shift_tables(int(l)) for l in np.unique(lens)}
-    out = np.empty(raw.size, np.uint32)
-    prev = seed_val
-    for i, (r, l) in enumerate(zip(raw.tolist(), lens.tolist())):
-        t0, t1, t2, t3 = tabs[l]
-        x = prev ^ _MASK32
-        prev = (t0[x & 0xFF] ^ t1[(x >> 8) & 0xFF] ^ t2[(x >> 16) & 0xFF]
-                ^ t3[x >> 24] ^ r ^ _MASK32)
-        out[i] = prev
-    return out
-
-
-def make_wal(n: int, width: int, lo: int, hi: int, seed_val: int,
-             seed: int, n_check: int = 1000):
-    """``n`` records of ``lo``..``hi`` random bytes right-aligned in
-    ``width``-byte rows, and their rolling CRC chain from ``seed_val``;
-    ``n_check`` sampled links are checked against ``crc32c.update``."""
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(lo, hi + 1, size=n).astype(np.int32)
-    buf = rng.integers(0, 256, size=(n, width), dtype=np.uint8)
-    buf[np.arange(width)[None, :] < (width - lens)[:, None]] = 0
-    stored = chain(raw_crcs(buf), lens, seed_val)
-    for i in rng.choice(n, size=min(n, n_check), replace=False):
-        prev = seed_val if i == 0 else int(stored[i - 1])
-        data = buf[i, width - lens[i]:].tobytes()
-        check(crc32c.update(prev, data) == int(stored[i]),
-              f"host chain disagrees with crc32c.update at record {i}")
-    return buf, lens, stored
+def read_launches() -> dict:
+    return {fn.__name__: (fn.launches, dict(fn.launches_by))
+            for fn in (crc_cuda.raw_crc_cuda, planes_cuda.planes_crc_cuda)}
 
 
 # -- timing ------------------------------------------------------------------
@@ -163,34 +130,79 @@ def profile_step(args, reps: int = 5):
     return wall * 1e3 / reps, busy_ms, top
 
 
+def records(rng, n: int, length: int) -> np.ndarray:
+    """``n`` right-aligned random records in ``length``-byte rows: an
+    empty one, full-width ones and random lengths."""
+    lens = rng.integers(0, length + 1, size=n)
+    lens[0] = length
+    lens[1:2] = 0
+    lens[2:3] = length
+    buf = rng.integers(0, 256, size=(n, length), dtype=np.uint8)
+    buf[np.arange(length)[None, :] < (length - lens)[:, None]] = 0
+    return buf
+
+
 def kernel_parity(rng) -> int:
-    """The kernel against its plain version, bit for bit, over widths,
-    row counts that are and are not a multiple of the block, all-zero
-    rows, empty and full-width records, and a misaligned base."""
+    """The raw-CRC kernel at every rows-per-block against its plain
+    version, bit for bit, over widths, row counts that are and are not
+    a multiple of the block, all-zero rows, empty and full-width
+    records, and a misaligned base."""
     cases = 0
     for length in (8, 64, 256, 384, 4096):
         for n in (1, 255, 4097):
-            lens = rng.integers(0, length + 1, size=n)
-            lens[0] = length
-            lens[1:2] = 0
-            lens[2:3] = length
-            buf = rng.integers(0, 256, size=(n, length), dtype=np.uint8)
-            buf[np.arange(length)[None, :] < (length - lens)[:, None]] = 0
-            x = torch.from_numpy(buf).cuda()
+            x = torch.from_numpy(records(rng, n, length)).cuda()
             for rows in (x, torch.zeros_like(x)):
-                got = crc_cuda.raw_crc_cuda(rows)
                 want = crc_cuda.raw_crc_plain(rows)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want),
-                      f"kernel != plain at L={length} N={n}")
-                cases += 1
+                for per_block in crc_cuda.ROWS_PER_BLOCK:
+                    got = crc_cuda.raw_crc_cuda(rows, per_block)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"kernel != plain at L={length} N={n} "
+                          f"rows={per_block}")
+                    cases += 1
     # a base one byte off a 16-byte boundary takes the byte-load path
     flat = torch.from_numpy(
         rng.integers(0, 256, size=255 * 384 + 1, dtype=np.uint8)).cuda()
     x = flat[1:].view(255, 384)
-    check(torch.equal(crc_cuda.raw_crc_cuda(x), crc_cuda.raw_crc_plain(x)),
-          "kernel != plain on a misaligned buffer")
-    return cases + 1
+    for per_block in crc_cuda.ROWS_PER_BLOCK:
+        check(torch.equal(crc_cuda.raw_crc_cuda(x, per_block),
+                          crc_cuda.raw_crc_plain(x)),
+              f"kernel != plain on a misaligned buffer, rows={per_block}")
+        cases += 1
+    return cases
+
+
+def planes_parity(rng) -> int:
+    """The planes kernel against its plain version, bit for bit, in
+    both orientations and operand types, at perturb 0, 3 and 255, over
+    widths, row counts, all-zero rows, tiles and a misaligned base."""
+    kinds = [(t, op) for t in (False, True) for op in planes_cuda.OPERANDS]
+    cases = 0
+
+    def held(rows, what, tile=1024, perturbs=(0, 3, 255)):
+        nonlocal cases
+        for p in perturbs:
+            want = planes_cuda.planes_crc_plain(rows, perturb=p)
+            for t, op in kinds:
+                got = planes_cuda.planes_crc_cuda(rows, tile, t, p, op)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"planes kernel != plain: {what} tile={tile} "
+                      f"transposed={t} {op} perturb={p}")
+                cases += 1
+
+    for length in (4, 8, 36, 64, 132, 384, 4096):
+        for n in (1, 255, 4097):
+            x = torch.from_numpy(records(rng, n, length)).cuda()
+            held(x, f"L={length} N={n}")
+            held(torch.zeros_like(x), f"zero rows L={length} N={n}")
+    x = torch.from_numpy(records(rng, 4097, 384)).cuda()
+    for tile in (64, 512, 1024, 2048):
+        held(x, "L=384 N=4097", tile=tile, perturbs=(3,))
+    flat = torch.from_numpy(
+        rng.integers(0, 256, size=255 * 384 + 1, dtype=np.uint8)).cuda()
+    held(flat[1:].view(255, 384), "misaligned base", perturbs=(0, 3))
+    return cases
 
 
 def plain_step(buf, lens, stored, seed, state, *raft):
@@ -213,6 +225,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -222,17 +235,22 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 1. build
+    # 1. build, every source at once
     t0 = time.perf_counter()
-    so = crc_cuda.build()
-    print(f"kernel build: {time.perf_counter() - t0:.3f} s ({so.name})")
-    log = so.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    libs = build_all()
+    print(f"kernel build: {time.perf_counter() - t0:.3f} s "
+          f"({', '.join(so.name for so in libs)})")
+    for so in libs:
+        log = so.with_suffix(".log")
+        if log.exists():
+            print(f"{so.name}:\n{log.read_text().strip()}")
 
-    # 2. kernel vs plain version on the card
+    # 2. kernels vs plain versions on the card
     rng = np.random.default_rng(DATA_SEED)
-    print(f"parity: {kernel_parity(rng)} cases bit-exact", flush=True)
+    print(f"parity: raw_crc {kernel_parity(rng)} cases bit-exact",
+          flush=True)
+    print(f"parity: planes_crc {planes_parity(rng)} cases bit-exact",
+          flush=True)
 
     # 3. the slice at real size
     t0 = time.perf_counter()
@@ -248,7 +266,7 @@ def main() -> int:
     args = (buf, lens, stored, SEED_VAL, state, *raft)
     torch.cuda.synchronize()
 
-    crc_cuda.raw_crc_cuda.launches = 0
+    reset_launches()
     out = data_plane_step(*args)
     torch.cuda.synchronize()
     launches = crc_cuda.raw_crc_cuda.launches
@@ -297,10 +315,8 @@ def main() -> int:
     # or its GF(2) contraction, 2 N 8L 32 int8 operations, at the
     # tensor-core rate.  The kernel's int64 output and nibble tables are
     # its own choices, not the function's, and are not counted.
-    nbytes = buf.numel() + 4 * N + 4 * 8 * WIDTH
-    ops = 2 * N * 8 * WIDTH * 32
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_S * 1e3, ops / INT8_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound = roofline.crc_bound(N, WIDTH)
+    bound_ms, nbytes, ops = bound["bound_ms"], bound["bytes"], bound["ops"]
     print(f"raw_crc kernel {kernel_ms} ms, plain {plain_ms} ms, bound "
           f"{bound_ms} ms ({nbytes} B, {ops} int8 ops) [{card}]")
     print(f"step {step_ms} ms = raw CRC kernel + chain verify {chain_ms} ms "
@@ -312,6 +328,57 @@ def main() -> int:
     for ms, name in top:
         print(f"  {ms:.4f} ms/step  {name[:90]}")
     print("library_ms: none -- no single PyTorch call computes a raw CRC")
+
+    # 5. the sweep's rows per block and the planes kernel, timed alone
+    # at the main path's shape: (ms, max_abs_err[, plain ms])
+    rows_timed, planes_timed = {}, {}
+    for per_block in (128, 512):
+        err_ = int((crc_cuda.raw_crc_cuda(buf, per_block) - want).abs().max())
+        check(err_ == 0, f"raw_crc rows={per_block} != plain at full size")
+        rows_timed[per_block] = (time_ms(
+            lambda: crc_cuda.raw_crc_cuda(buf, per_block), reps=20), err_)
+    for t in (False, True):
+        want_t = planes_cuda.planes_crc_plain(buf, transposed=t)
+        plain_t = time_ms(
+            lambda: planes_cuda.planes_crc_plain(buf, transposed=t), reps=3)
+        for op in planes_cuda.OPERANDS:
+            got = planes_cuda.planes_crc_cuda(buf, 1024, t, 0, op)
+            err_ = int((got - want_t).abs().max())
+            check(err_ == 0, f"planes_crc transposed={t} {op} != plain at "
+                  f"full size")
+            ms = time_ms(
+                lambda: planes_cuda.planes_crc_cuda(buf, 1024, t, 0, op),
+                reps=20)
+            planes_timed[(t, op)] = (ms, err_, plain_t)
+            print(f"planes_crc transposed={t} {op}: {ms} ms, plain "
+                  f"{plain_t} ms [{card}]", flush=True)
+
+    # 6. the race: every variant on the step's records, seed-injected
+    rows_inj = injected(buf_h, lens_h, stored_h, SEED_VAL)
+    reset_launches()
+    race = crc_variants_bench.main(rows_inj, stored_h, RACE_ITERS, dev)
+    torch.cuda.synchronize()
+    race_counts = read_launches()
+    del rows_inj
+    failed = {k: v["error"] for k, v in race.items() if "error" in v}
+    check(not failed, f"race variants failed: {failed}")
+    for name, (count, _) in race_counts.items():
+        check(count >= RACE_ITERS, f"the race launched {name} {count} "
+              f"times, fewer than its {RACE_ITERS} iterations")
+
+    # 7. the sweep of tiles and operand types on [2^20, 384] random rows
+    reset_launches()
+    sweep = kernel_sweep.main(SWEEP_K, 20, dev)
+    torch.cuda.synchronize()
+    sweep_counts = read_launches()
+    check(len(sweep) == len(kernel_sweep.sweep_rows(dev)),
+          "the sweep lost a row")
+
+    raw_by = {r: sweep_counts["raw_crc_cuda"][1][r] for r in (128, 512)}
+    planes_by = {k: race_counts["planes_crc_cuda"][1][k]
+                 + sweep_counts["planes_crc_cuda"][1][k] for k in planes_timed}
+    for what, count in [*raw_by.items(), *planes_by.items()]:
+        check(count > 0, f"no launch of {what} in the race or the sweep")
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -319,10 +386,35 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "bit_exact": max_abs_err == 0,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound["bound_by"],
         "library_ms": None,
         "shape": [N, WIDTH], "step_ms": step_ms,
     }]
+    for per_block in (128, 512):
+        ms, err_ = rows_timed[per_block]
+        kernels.append({
+            "name": f"raw_crc@{per_block}", "route": "cuda",
+            "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+            "replaces": "scripts/pallas_sweep.py:150",
+            "launches": raw_by[per_block], "max_abs_err": err_,
+            "bit_exact": err_ == 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound["bound_by"],
+            "library_ms": None, "shape": [N, WIDTH]})
+    replaces = {(False, "int8"): "etcd_tpu/ops/crc_variants.py:149",
+                (True, "int8"): "etcd_tpu/ops/crc_variants.py:167",
+                (False, "bf16"): "scripts/pallas_sweep.py:102",
+                (True, "bf16"): "scripts/pallas_sweep.py:102"}
+    for (t, op), (ms, err_, plain_t) in planes_timed.items():
+        b = roofline.crc_bound(N, WIDTH, op)
+        kernels.append({
+            "name": f"planes_crc{'_t' if t else ''} {op}", "route": "cuda",
+            "source": "etcd_tpu_torch/csrc/planes_crc.cu",
+            "replaces": replaces[(t, op)], "launches": planes_by[(t, op)],
+            "max_abs_err": err_, "bit_exact": err_ == 0, "ms": ms,
+            "plain_ms": plain_t, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
+            "shape": [N, WIDTH], "tile": 1024})
+    print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ which stays the reference the port is held against), for the pieces
 ported so far:
 
     crc/        CRC32-Castagnoli host digest and GF(2) algebra (copies)
-    ops/        batched raw CRC (hand-written CUDA kernel + its plain
-                torch version), chain verify, quorum commit index
+    ops/        batched raw CRC (hand-written CUDA kernels + their plain
+                torch versions), its variant formulations, chain
+                verify, quorum commit index
     raft/       the [G]-batched Raft engine (``batched.py``)
     parallel/   the fused single-card data-plane step
+    obs/        roofline accounting (``roofline.py``)
+    scripts/    the raw-CRC variant race, the kernel sweep, the host
+                WAL builder
     entry.py    example inputs and the entry point of that step
     csrc/       CUDA C++ sources, built with nvcc at first use
 

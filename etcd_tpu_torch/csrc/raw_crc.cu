@@ -36,18 +36,27 @@
 // use the tensor cores: its fold costs about 8 integer instructions a
 // byte, some 3e9 in all, which at Hopper's integer rate (132 SMs x 64
 // lanes x ~1.7 GHz, ~1.4e13/s) is ~0.2 ms, so it is likely bound by the
-// integer ALUs and not by memory.  An int8 tensor-core (mma / wgmma s8)
-// form, as the TPU kernel was, waits for a later change.
+// integer ALUs and not by memory.  The int8 tensor-core form of the same
+// contraction is csrc/planes_crc.cu.
+//
+// Rows per block.  raw_crc_launch_rows takes 128, 256 or 512; the main
+// path runs 256.  The choice is the port's counterpart of the tile swept
+// by scripts/pallas_sweep.py:make_pallas_concat (TPU kernel 5).  Shared memory is static: ROWS * 68 B of staged rows plus
+// 8 KB of nibble tables, 43,008 B at 512 rows, under the 48 KB static
+// limit.  The TPU's tiles of 1024-2048 rows do not carry over: here a
+// tile is a block of one thread a row, and 1024 threads of 68-byte rows
+// would pass that limit and leave a few blocks on each SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int ROWS = 256;        // rows per block, one thread per row
 constexpr int CW = 64;           // bytes of each row staged per pass
 constexpr int STRIDE = CW + 4;   // padded shared-memory row, in bytes
 
+// ROWS: rows per block, one thread per row.
+template <int ROWS>
 __global__ void __launch_bounds__(ROWS)
 raw_crc_kernel(const uint8_t* __restrict__ buf,
                const uint32_t* __restrict__ tab,
@@ -106,18 +115,32 @@ raw_crc_kernel(const uint8_t* __restrict__ buf,
   if (t < rows) out[r0 + t] = (long long)acc;
 }
 
-}  // namespace
-
-// buf: uint8 [n, length] contiguous; tab: uint32 [2 * length * 16]
-// nibble tables; out: int64 [n].  Launches on `stream` and returns the
-// cudaError_t of the launch (0 on success).  n >= 1, length >= 1.
-extern "C" int raw_crc_launch(const void* buf, const void* tab, void* out,
-                              long long n, int length, void* stream) {
+template <int ROWS>
+int launch(const void* buf, const void* tab, void* out, long long n,
+           int length, void* stream) {
   const int vec =
       (length % 16 == 0) && ((uintptr_t)buf % 16 == 0) ? 1 : 0;
   const long long blocks = (n + ROWS - 1) / ROWS;
-  raw_crc_kernel<<<(unsigned)blocks, ROWS, 0, (cudaStream_t)stream>>>(
+  raw_crc_kernel<ROWS><<<(unsigned)blocks, ROWS, 0, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(buf), static_cast<const uint32_t*>(tab),
       static_cast<long long*>(out), n, length, vec);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// buf: uint8 [n, length] contiguous; tab: uint32 [2 * length * 16]
+// nibble tables; out: int64 [n]; rows: rows per block, 128, 256 or 512.
+// Launches on `stream` and returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue for another `rows`).  n >= 1,
+// length >= 1.
+extern "C" int raw_crc_launch_rows(const void* buf, const void* tab,
+                                   void* out, long long n, int length,
+                                   int rows, void* stream) {
+  switch (rows) {
+    case 128: return launch<128>(buf, tab, out, n, length, stream);
+    case 256: return launch<256>(buf, tab, out, n, length, stream);
+    case 512: return launch<512>(buf, tab, out, n, length, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

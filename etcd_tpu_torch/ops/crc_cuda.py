@@ -1,14 +1,21 @@
 """The raw-CRC kernel for NVIDIA Hopper, its build, binding and plain
-torch version.
+torch version, and the nvcc build that every kernel of the port shares.
 
 ``raw_crc_cuda`` replaces the TPU kernel ``etcd_tpu/ops/crc_pallas.py:
 _kernel`` (via ``raw_crc_pallas``): uint8 ``[N, L]`` right-aligned rows
 in, their raw CRC32C states out.  The kernel is CUDA C++ in
 ``etcd_tpu_torch/csrc/raw_crc.cu`` (its header comment gives the design
 and its bound on the card), compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, loaded with ``ctypes``.  The
-library is built at first use into ``etcd_tpu_torch/build/``, named by a
-hash of the source and flags; a failed build raises with nvcc's stderr.
+shared library with a plain C entry point, loaded with ``ctypes``.
+Its ``rows`` argument (rows per block: 128, 256 or 512) is the tile
+that ``scripts/pallas_sweep.py:make_pallas_concat`` swept on the TPU;
+the main path runs 256.
+
+``library_path``/``build``/``library`` serve every ``.cu`` file under
+``csrc/``: each source is built at first use into
+``etcd_tpu_torch/build/``, named by a hash of that source and the
+flags, with nvcc's report kept beside it as ``.log``; a failed build
+raises with nvcc's stderr.
 
 ``raw_crc_plain`` is the same function in plain torch ops (unpack the
 bits, multiply by the contribution matrix, take parity, pack), in row
@@ -37,16 +44,21 @@ from .crc_bits import (
 )
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "raw_crc.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "raw_crc.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: rows per block that raw_crc.cu is instantiated for; 256 is the main
+#: path's
+ROWS_PER_BLOCK = (128, 256, 512)
 
 # Bytes of float32 bits the plain version unpacks at a time.
 _PLAIN_CHUNK_BYTES = 256 << 20
 
 
-# -- build and bind ----------------------------------------------------------
+# -- build and bind (every kernel of the port) -------------------------------
 
 
 def _nvcc() -> str:
@@ -58,46 +70,54 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def library_path() -> Path:
-    """Where the built kernel library lives, keyed by source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library built from ``source`` lives, keyed by the
+    source's bytes and the flags."""
+    h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"raw_crc_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``raw_crc.cu`` unless the library for this source exists.
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` unless the library for its bytes exists.
 
     nvcc's report (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside the library with the suffix ``.log``."""
-    so = library_path()
+    kept beside the library with the suffix ``.log``.  Builds of two
+    sources may run at once (each writes its own temporary file)."""
+    so = library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError(f"nvcc not found ({cmd[0]}): the raw-CRC "
-                           f"kernel cannot be built") from e
+        raise RuntimeError(f"nvcc not found ({cmd[0]}): {source.name} "
+                           f"cannot be built") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
+            f"nvcc failed ({proc.returncode}) building {source.name}:\n"
             f"{proc.stderr}")
     so.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, so)
     return so
 
 
+@functools.lru_cache(maxsize=None)
+def library(source: Path = SOURCE) -> ctypes.CDLL:
+    """The library built from ``source``, loaded once per process."""
+    return ctypes.CDLL(str(build(source)))
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    lib.raw_crc_launch.argtypes = [
+    lib = library(SOURCE)
+    lib.raw_crc_launch_rows.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    lib.raw_crc_launch.restype = ctypes.c_int
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.raw_crc_launch_rows.restype = ctypes.c_int
     return lib
 
 
@@ -130,20 +150,25 @@ def _tables_on(length: int, device: torch.device) -> torch.Tensor:
 # -- the wrapper and its plain version ---------------------------------------
 
 
-def raw_crc_cuda(buf: torch.Tensor) -> torch.Tensor:
+def raw_crc_cuda(buf: torch.Tensor, rows: int = 256) -> torch.Tensor:
     """Raw CRC states of the right-aligned rows of ``buf``: int64 [N].
 
     ``buf`` must be a contiguous uint8 ``[N, L]`` CUDA tensor with
-    ``L >= 1``.  Launches on the current stream and does not wait; adds
-    one to ``raw_crc_cuda.launches`` for each launch."""
-    if buf.device.type != "cuda":
-        raise ValueError(f"raw_crc_cuda needs a CUDA tensor, got "
-                         f"{buf.device}")
+    ``L >= 1``; ``rows`` is the kernel's rows per block, one of
+    :data:`ROWS_PER_BLOCK`.  Launches on the current stream and does
+    not wait; adds one to ``raw_crc_cuda.launches`` and to
+    ``raw_crc_cuda.launches_by[rows]`` for each launch."""
+    if rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"raw_crc_cuda runs {ROWS_PER_BLOCK} rows per "
+                         f"block, not {rows!r}")
     if buf.dtype != torch.uint8:
         raise ValueError(f"raw_crc_cuda needs uint8 rows, got {buf.dtype}")
     if buf.dim() != 2:
         raise ValueError(f"raw_crc_cuda needs [N, L] rows, got shape "
                          f"{tuple(buf.shape)}")
+    if buf.device.type != "cuda":
+        raise ValueError(f"raw_crc_cuda needs a CUDA tensor, got "
+                         f"{buf.device}")
     if not buf.is_contiguous():
         raise ValueError("raw_crc_cuda needs contiguous rows")
     n, length = buf.shape
@@ -156,15 +181,18 @@ def raw_crc_cuda(buf: torch.Tensor) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = lib.raw_crc_launch(buf.data_ptr(), tab.data_ptr(),
-                                 out.data_ptr(), n, length, stream)
+        err = lib.raw_crc_launch_rows(buf.data_ptr(), tab.data_ptr(),
+                                      out.data_ptr(), n, length, rows,
+                                      stream)
     if err != 0:
         raise RuntimeError(f"raw_crc kernel launch failed: cudaError {err}")
     raw_crc_cuda.launches += 1
+    raw_crc_cuda.launches_by[rows] += 1
     return out
 
 
 raw_crc_cuda.launches = 0
+raw_crc_cuda.launches_by = dict.fromkeys(ROWS_PER_BLOCK, 0)
 
 
 def raw_crc_plain(buf: torch.Tensor) -> torch.Tensor:

@@ -106,14 +106,17 @@ def test_entry_raises_without_cuda(monkeypatch):
 
 
 def test_smoke_host_chain_matches_reference():
-    """chip_smoke.py's vectorised WAL builder against the reference's
-    CRCs: its raw CRCs equal raw_crc_batch, its chain crc32c.update."""
+    """The vectorised WAL builder that chip_smoke.py uses
+    (etcd_tpu_torch.scripts.walgen) against the reference's CRCs: its
+    raw CRCs equal raw_crc_batch, its chain crc32c.update."""
     import chip_smoke
+    from etcd_tpu_torch.scripts import walgen
 
-    buf, lens, stored = chip_smoke.make_wal(300, 64, 20, 60, 0xDEADBEEF,
-                                            seed=5, n_check=300)
+    assert chip_smoke.make_wal is walgen.make_wal
+    buf, lens, stored = walgen.make_wal(300, 64, 20, 60, 0xDEADBEEF,
+                                        seed=5, n_check=300)
     np.testing.assert_array_equal(
-        chip_smoke.raw_crcs(buf),
+        walgen.raw_crcs(buf),
         np.asarray(jdev.raw_crc_batch(buf, use_pallas=False)))
     prev = 0xDEADBEEF
     for i in range(len(lens)):
