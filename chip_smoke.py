@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``etcd_tpu_torch/csrc`` with nvcc (one
-nvcc per source, all at once) and holds each bit for bit against its
-plain torch version.  Then it drives two paths at full size:
+nvcc per source, all at once), measures the rate of the 1-bit and int8
+``mma.sync`` forms that the raw-CRC kernel chose between
+(``etcd_tpu_torch.scripts.mma_rate``), and holds each kernel bit for bit
+against its plain torch version.  Then it drives two paths at full size:
 
 1. the main path, ``etcd_tpu_torch.parallel.data_plane_step``: 1,048,576
    WAL records of 256-380 bytes in 384-byte rows (BASELINE config 1,
@@ -48,7 +50,7 @@ from etcd_tpu_torch.ops.crc_device import (  # noqa: E402
 from etcd_tpu_torch.parallel import data_plane_step  # noqa: E402
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
-    crc_variants_bench, kernel_sweep)
+    crc_variants_bench, kernel_sweep, mma_rate)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 
 N, WIDTH, LEN_LO, LEN_HI = 1 << 20, 384, 256, 380
@@ -58,6 +60,27 @@ DATA_SEED = 20261016
 RACE_ITERS = 8
 SWEEP_K = 12
 
+# The kernels' designs, and the times of the designs they replaced at
+# 1M x 384 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, the
+# port's run A of the race and sweep slice): the nibble-table fold at
+# 256, 128 and 512 rows a block, which the 32-, 16- and 64-row tiles
+# replace, and the WMMA planes kernel at tile 1024.
+RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
+              "resident in smem as B; cp.async.bulk ring per warp")
+PLANES_DESIGN = {
+    False: "wgmma m64n32k32 s8 / m64n32k16 bf16: planes in registers as A, "
+           "C_k^T in smem as B (resident, or 64-byte K-chunks a 512-row "
+           "pass)",
+    True: "mma.sync m16n8k32 s8 / m16n8k16 bf16: C_k^T in smem via "
+          "ldmatrix as A, planes in registers as B"}
+PREV_MS = {"raw_crc": 0.33718399703502655,
+           "raw_crc@16": 0.3535040020942688,
+           "raw_crc@64": 0.3341439962387085,
+           "planes_crc int8": 2.721216082572937,
+           "planes_crc_t int8": 2.6980639696121216,
+           "planes_crc bf16": 4.843648195266724,
+           "planes_crc_t bf16": 4.9490721225738525}
+
 
 def check(ok, what: str) -> None:
     if not ok:
@@ -66,7 +89,7 @@ def check(ok, what: str) -> None:
 
 def build_all() -> list:
     """Build every kernel source at once, one nvcc each."""
-    sources = (crc_cuda.SOURCE, planes_cuda.SOURCE)
+    sources = (crc_cuda.SOURCE, planes_cuda.SOURCE, mma_rate.SOURCE)
     with ThreadPoolExecutor(len(sources)) as ex:
         futures = [ex.submit(crc_cuda.build, src) for src in sources]
         return [f.result() for f in futures]
@@ -143,31 +166,32 @@ def records(rng, n: int, length: int) -> np.ndarray:
 
 
 def kernel_parity(rng) -> int:
-    """The raw-CRC kernel at every rows-per-block against its plain
-    version, bit for bit, over widths, row counts that are and are not
-    a multiple of the block, all-zero rows, empty and full-width
-    records, and a misaligned base."""
+    """The raw-CRC kernel at every rows-per-tile against its plain
+    version, bit for bit, over widths (multiples of 16 take the bulk-copy
+    path up to about 1 KB, the others and 4096 the direct path), row
+    counts that are and are not a multiple of the tile, all-zero rows,
+    empty and full-width records, and a misaligned base."""
     cases = 0
-    for length in (8, 64, 256, 384, 4096):
-        for n in (1, 255, 4097):
+    for length in (1, 8, 33, 64, 100, 256, 383, 384, 1040, 4096):
+        for n in (1, 17, 255, 4097):
             x = torch.from_numpy(records(rng, n, length)).cuda()
             for rows in (x, torch.zeros_like(x)):
                 want = crc_cuda.raw_crc_plain(rows)
-                for per_block in crc_cuda.ROWS_PER_BLOCK:
-                    got = crc_cuda.raw_crc_cuda(rows, per_block)
+                for per_tile in crc_cuda.ROWS_PER_TILE:
+                    got = crc_cuda.raw_crc_cuda(rows, per_tile)
                     torch.cuda.synchronize()
                     check(torch.equal(got, want),
                           f"kernel != plain at L={length} N={n} "
-                          f"rows={per_block}")
+                          f"rows={per_tile}")
                     cases += 1
     # a base one byte off a 16-byte boundary takes the byte-load path
     flat = torch.from_numpy(
         rng.integers(0, 256, size=255 * 384 + 1, dtype=np.uint8)).cuda()
     x = flat[1:].view(255, 384)
-    for per_block in crc_cuda.ROWS_PER_BLOCK:
-        check(torch.equal(crc_cuda.raw_crc_cuda(x, per_block),
+    for per_tile in crc_cuda.ROWS_PER_TILE:
+        check(torch.equal(crc_cuda.raw_crc_cuda(x, per_tile),
                           crc_cuda.raw_crc_plain(x)),
-              f"kernel != plain on a misaligned buffer, rows={per_block}")
+              f"kernel != plain on a misaligned buffer, rows={per_tile}")
         cases += 1
     return cases
 
@@ -191,7 +215,7 @@ def planes_parity(rng) -> int:
                       f"transposed={t} {op} perturb={p}")
                 cases += 1
 
-    for length in (4, 8, 36, 64, 132, 384, 4096):
+    for length in (4, 8, 33, 36, 64, 100, 132, 383, 384, 4096):
         for n in (1, 255, 4097):
             x = torch.from_numpy(records(rng, n, length)).cuda()
             held(x, f"L={length} N={n}")
@@ -244,6 +268,14 @@ def main() -> int:
         log = so.with_suffix(".log")
         if log.exists():
             print(f"{so.name}:\n{log.read_text().strip()}")
+
+    # the 1-bit and int8 mma.sync rates raw_crc.cu's route rests on
+    rate = mma_rate.main()
+    b1, s8 = rate["b1_and_popc_m16n8k256"], rate["s8_m16n8k32"]
+    print(f"mma rate: 1-bit m16n8k256 and.popc {b1['tops']} TOP/s "
+          f"({b1['instr_per_ns']} instructions/ns), int8 m16n8k32 "
+          f"{s8['tops']} TOP/s ({s8['instr_per_ns']} instructions/ns); "
+          f"SASS {rate['sass_mma_opcodes']} [{card}]", flush=True)
 
     # 2. kernels vs plain versions on the card
     rng = np.random.default_rng(DATA_SEED)
@@ -332,11 +364,14 @@ def main() -> int:
     # 5. the sweep's rows per block and the planes kernel, timed alone
     # at the main path's shape: (ms, max_abs_err[, plain ms])
     rows_timed, planes_timed = {}, {}
-    for per_block in (128, 512):
-        err_ = int((crc_cuda.raw_crc_cuda(buf, per_block) - want).abs().max())
-        check(err_ == 0, f"raw_crc rows={per_block} != plain at full size")
-        rows_timed[per_block] = (time_ms(
-            lambda: crc_cuda.raw_crc_cuda(buf, per_block), reps=20), err_)
+    swept = [r for r in crc_cuda.ROWS_PER_TILE if r != crc_cuda.DEFAULT_ROWS]
+    for per_tile in swept:
+        err_ = int((crc_cuda.raw_crc_cuda(buf, per_tile) - want).abs().max())
+        check(err_ == 0, f"raw_crc rows={per_tile} != plain at full size")
+        rows_timed[per_tile] = (time_ms(
+            lambda: crc_cuda.raw_crc_cuda(buf, per_tile), reps=20), err_)
+        print(f"raw_crc rows={per_tile}: {rows_timed[per_tile][0]} ms "
+              f"[{card}]", flush=True)
     for t in (False, True):
         want_t = planes_cuda.planes_crc_plain(buf, transposed=t)
         plain_t = time_ms(
@@ -374,13 +409,13 @@ def main() -> int:
     check(len(sweep) == len(kernel_sweep.sweep_rows(dev)),
           "the sweep lost a row")
 
-    raw_by = {r: sweep_counts["raw_crc_cuda"][1][r] for r in (128, 512)}
+    raw_by = {r: sweep_counts["raw_crc_cuda"][1][r] for r in swept}
     planes_by = {k: race_counts["planes_crc_cuda"][1][k]
                  + sweep_counts["planes_crc_cuda"][1][k] for k in planes_timed}
     for what, count in [*raw_by.items(), *planes_by.items()]:
         check(count > 0, f"no launch of {what} in the race or the sweep")
     kernels = [{
-        "name": "raw_crc", "route": "cuda",
+        "name": f"raw_crc@{crc_cuda.DEFAULT_ROWS}", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
         "replaces": "etcd_tpu/ops/crc_pallas.py:40",
         "launches": launches, "max_abs_err": max_abs_err,
@@ -388,18 +423,20 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound["bound_by"],
         "library_ms": None,
+        "design": RAW_DESIGN, "prev_ms": PREV_MS["raw_crc"],
         "shape": [N, WIDTH], "step_ms": step_ms,
     }]
-    for per_block in (128, 512):
-        ms, err_ = rows_timed[per_block]
+    for per_tile in swept:
+        ms, err_ = rows_timed[per_tile]
         kernels.append({
-            "name": f"raw_crc@{per_block}", "route": "cuda",
+            "name": f"raw_crc@{per_tile}", "route": "cuda",
             "source": "etcd_tpu_torch/csrc/raw_crc.cu",
             "replaces": "scripts/pallas_sweep.py:150",
-            "launches": raw_by[per_block], "max_abs_err": err_,
+            "launches": raw_by[per_tile], "max_abs_err": err_,
             "bit_exact": err_ == 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound["bound_by"],
-            "library_ms": None, "shape": [N, WIDTH]})
+            "library_ms": None, "design": RAW_DESIGN,
+            "prev_ms": PREV_MS[f"raw_crc@{per_tile}"], "shape": [N, WIDTH]})
     replaces = {(False, "int8"): "etcd_tpu/ops/crc_variants.py:149",
                 (True, "int8"): "etcd_tpu/ops/crc_variants.py:167",
                 (False, "bf16"): "scripts/pallas_sweep.py:102",
@@ -413,6 +450,8 @@ def main() -> int:
             "max_abs_err": err_, "bit_exact": err_ == 0, "ms": ms,
             "plain_ms": plain_t, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,
+            "design": PLANES_DESIGN[t],
+            "prev_ms": PREV_MS[f"planes_crc{'_t' if t else ''} {op}"],
             "shape": [N, WIDTH], "tile": 1024})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,146 +1,361 @@
 // Raw CRC32-Castagnoli state of every right-aligned row of a uint8
-// [N, L] buffer, on NVIDIA Hopper (sm_90a).
+// [N, L] buffer, on the 1-bit tensor cores of NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel etcd_tpu/ops/crc_pallas.py:_kernel, which
-// unpacked 8 bit planes in VMEM and contracted them with the [8L, 32]
-// contribution matrix C in one int8 MXU matmul.  The function is the
-// same: raw(row) = XOR over the set bits (8i + k) of row of C[8i + k],
-// with each row of C packed into one 32-bit word.  All-zero rows give 0.
+// Replaces the TPU kernel etcd_tpu/ops/crc_pallas.py:_kernel (via
+// raw_crc_pallas), which unpacked 8 bit planes in VMEM and contracted
+// them with the [8L, 32] contribution matrix C in one int8 MXU matmul,
+// and its swept-tile form scripts/pallas_sweep.py:make_pallas_concat
+// (here the `rows` argument).  The function: raw(row) = parity of
+// bits(row) . C[:, j] for each output bit j, packed LSB first.  All-zero
+// rows give 0.
 //
-// Design.  One thread folds one row; a block of ROWS threads walks its
-// rows' columns in passes of CW bytes.  Each pass stages the rows'
-// bytes in shared memory (16-byte coalesced loads when the row width
-// and base allow it, byte loads otherwise) and the matching slice of a
-// nibble table: for each nibble q of the row (q = 2i + h, h = 0 low,
-// 1 high) and each value v in [0, 16), tab[q][v] = XOR of the packed C
-// words of the set bits of v.  A byte then costs two table reads and
-// two XORs instead of eight bit tests.
-//   - Bank conflicts: a smem row is CW + 4 bytes (17 words, odd), so
-//     the 32 threads of a warp reading the same column of their rows
-//     hit 32 different banks.  The table reads of one column all fall
-//     in one 16-word run (one run per nibble), so they are conflict
-//     free or broadcast whatever the data.
-//   - The tables (128 L bytes, 48 KB at L = 384) are uploaded once per
-//     (L, device) and read from L2 by every block; shared memory per
-//     block is 25 KB whatever L is, so L = 4096 snapshot chunks run in
-//     the same kernel.
+// Bound on one H100 SXM (3.35 TB/s; NVIDIA H100 80GB HBM3 at 700 W).  At
+// N = 1,048,576 and L = 384 the function must read 402,653,184 B of rows
+// and 12 KB of packed C and write 4 MB of uint32 states: 406,859,776 B,
+// 0.1215 ms at the memory rate.  It is bound by bytes.
 //
-// Bound on one H100 SXM (3.35 TB/s, 1,979 int8 TOP/s).  At the slice's
-// shape, N = 1,048,576 and L = 384, the function must read 403 MB of
-// rows and 12 KB of packed C and write 4 MB of uint32 states: 0.121 ms
-// at the memory rate.  The int8 tensor-core form of the same contraction
-// (2 N 8L 32 = 2.1e11 ops) would take 0.10 ms, so the function is bound
-// by bytes.  This kernel writes its states as int64 (8 MB, the port's
-// carrier for uint32) and reads 48 KB of nibble tables: about 1% more
-// traffic than the bound counts, a known cost.  This kernel does not
-// use the tensor cores: its fold costs about 8 integer instructions a
-// byte, some 3e9 in all, which at Hopper's integer rate (132 SMs x 64
-// lanes x ~1.7 GHz, ~1.4e13/s) is ~0.2 ms, so it is likely bound by the
-// integer ALUs and not by memory.  The int8 tensor-core form of the same
-// contraction is csrc/planes_crc.cu.
+// The earlier design (one thread a row, two nibble-table lookups a byte)
+// took 0.337-0.381 ms, 32-36% of the bound: about 8-9 integer
+// instructions a byte, some 3.2e9 in all, so it was bound by instruction
+// issue; and every 64-byte pass restaged the rows and an 8 KB slice of
+// the tables through shared memory behind two barriers.
 //
-// Rows per block.  raw_crc_launch_rows takes 128, 256 or 512; the main
-// path runs 256.  The choice is the port's counterpart of the tile swept
-// by scripts/pallas_sweep.py:make_pallas_concat (TPU kernel 5).  Shared memory is static: ROWS * 68 B of staged rows plus
-// 8 KB of nibble tables, 43,008 B at 512 rows, under the 48 KB static
-// limit.  The TPU's tiles of 1024-2048 rows do not carry over: here a
-// tile is a block of one thread a row, and 1024 threads of 68-byte rows
-// would pass that limit and leave a few blocks on each SM.
+// This design takes the per-byte instructions away.  The GF(2)
+// contraction is a popcount of AND over bits, which one warp instruction
+// does for a 16 x 8 x 256-bit tile:
+//   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc.
+// scripts/mma_rate.py measured it on an NVIDIA H100 80GB HBM3 (700.00 W)
+// at 134 instructions a ns, the same instruction rate as the int8
+// m16n8k32 form (8,777 against 1,100 TOP/s), compiled to a native
+// BMMA.168256.AND.POPC.  A 1M x 384 contraction is 3.1e6 of them, about
+// 24 us of the card, so the kernel is left bound by bytes.
+//   - A operand: the row's bytes as they lie in memory.  A little-endian
+//     32-bit word holds bit k of byte i at bit 8(i mod 4) + k, which is
+//     contraction index 8i + k, row 8i + k of C.  Nothing is unpacked.
+//   - B operand: C transposed and packed to bits, column j's byte i
+//     holding C[8i + k, j] at bit k: [32, Lp] bytes, Lp = L rounded up to
+//     128 with zero bytes past L (12 KB at L = 384, 128 KB at 4096).  Built
+//     on the host, uploaded once per (L, device), copied into shared
+//     memory once per block and kept there; never restaged.  Bytes past L
+//     meet zero B bits, so whatever A holds there adds nothing.
+//   - Fragments: a thread (group g = lane / 4, t = lane % 4) reads 16
+//     contiguous bytes of its row at c0 + 16t and at c0 + 64 + 16t of a
+//     128-byte chunk and feeds them, word by word, to four k-steps; B is
+//     read with the same byte mapping, so the contraction index means the
+//     same bytes for every row and column of each product.
+//   - Epilogue: parity is acc & 1; a thread holds 8 of a row's 32 bits,
+//     the four lanes of a quad OR theirs together with __shfl_xor, and
+//     one int64 is written a row.
+//   - Loop: a persistent grid of 4-warp blocks.  Each warp walks tiles of
+//     `rows` rows (16, 32 or 64) with its own ring of 2-4 stages in shared
+//     memory: a tile of R rows is R*L contiguous bytes, so one
+//     cp.async.bulk with an mbarrier brings it in while the tiles before it
+//     are multiplied.  No block-wide barrier after the start.
+//   - Bank conflicts: a quarter-warp reads rows g and g + 1 of a stage,
+//     L bytes apart.  When L mod 128 is near 0 the odd rows read their
+//     two 16-byte pieces in the other order (`swap`), so the eight lanes
+//     cover 128 distinct bytes; B's smem column stride is Lp + 64.
+//   - Edge cases: a base that is not 16-byte aligned, L % 16 != 0, or an L
+//     whose stages do not fit beside B (L > ~1 KB) take the direct path:
+//     the same products with the fragments read straight from device
+//     memory (16-byte loads where aligned, byte loads otherwise, zeros
+//     past L and past N).  It is not the plain version.
+//
+// Prediction (before the first run on the card): 0.14-0.20 ms at
+// 1M x 384 (60-85% of the bound), at every rows value within 15%.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (two runs): 0.173-0.179 ms at 32 rows a tile (68-70% of the bound,
+// 2.2-2.3 TB/s of rows), 0.169-0.180 and 0.174-0.184 ms at 16 and 64;
+// the nibble-table fold took 0.337 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int CW = 64;           // bytes of each row staged per pass
-constexpr int STRIDE = CW + 4;   // padded shared-memory row, in bytes
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int CHUNK = 128;                 // bytes of a row a step
+constexpr int SMEM_MAX = 232448;           // a block's dynamic smem, sm_90
+constexpr int MAX_STAGES = 4;
 
-// ROWS: rows per block, one thread per row.
-template <int ROWS>
-__global__ void __launch_bounds__(ROWS)
-raw_crc_kernel(const uint8_t* __restrict__ buf,
-               const uint32_t* __restrict__ tab,
-               long long* __restrict__ out, long long n, int length,
-               int vec) {
-  __shared__ __align__(16) uint8_t tile[ROWS * STRIDE];
-  __shared__ uint32_t ntab[CW * 32];  // 2 nibbles x 16 values a byte
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int t = threadIdx.x;
-  const long long r0 = (long long)blockIdx.x * ROWS;
-  const int rows = (int)min((long long)ROWS, n - r0);
-  const uint8_t* base = buf + r0 * length;
-  uint32_t acc = 0;
+__device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-  for (int c0 = 0; c0 < length; c0 += CW) {
-    const int cw = min(CW, length - c0);
-    const int cw4 = (cw + 3) & ~3;  // whole words; the rest is zeros
-    __syncthreads();  // the previous pass is done with tile and ntab
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 
-    const uint32_t* tsrc = tab + (size_t)c0 * 32;
-    for (int i = t; i < cw4 * 32; i += ROWS)
-      ntab[i] = i < cw * 32 ? tsrc[i] : 0u;
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
 
-    if (vec) {  // length % 16 == 0 and a 16-byte aligned base
-      const int per_row = cw / 16;
-      for (int p = t; p < rows * per_row; p += ROWS) {
-        const int r = p / per_row, q = p - r * per_row;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            base + (long long)r * length + c0 + q * 16);
-        uint32_t* dst =
-            reinterpret_cast<uint32_t*>(tile + r * STRIDE + q * 16);
-        dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-      }
-    } else {
-      for (int p = t; p < rows * cw4; p += ROWS) {
-        const int r = p / cw4, q = p - r * cw4;
-        tile[r * STRIDE + q] =
-            q < cw ? base[(long long)r * length + c0 + q] : (uint8_t)0;
-      }
-    }
-    __syncthreads();
+// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
-    if (t < rows) {
-      const uint8_t* row = tile + t * STRIDE;
-      for (int j = 0; j < cw4; j += 4) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(row + j);
+// 16 bytes of a row at column `col`, read straight from device memory:
+// zeros at and past `length`; 16-byte loads when `vec` (length % 16 == 0
+// and an aligned base), byte loads otherwise.
+__device__ __forceinline__ uint4 piece_direct(const uint8_t* row, int col,
+                                              int length, int vec) {
+  if (col >= length) return make_uint4(0u, 0u, 0u, 0u);
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(row + col));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const uint32_t b = (w >> (8 * k)) & 0xFFu;
-          const uint32_t* nt = ntab + (j + k) * 32;
-          acc ^= nt[b & 15u] ^ nt[16 + (b >> 4)];
-        }
+  for (int j = 0; j < 16; ++j)
+    if (col + j < length) w[j >> 2] |= (uint32_t)row[col + j] << (8 * (j & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The products of one tile of T rows against the resident B, and its
+// states written to out[r0 ..].  BULK: `rows` points at the tile in
+// shared memory (row r at r * length, always readable to the chunk's
+// end); else at the tile in device memory, rows past `valid` read as 0.
+template <int T, bool BULK>
+__device__ __forceinline__ void tile_crc(const uint8_t* rows, int valid,
+                                         const uint8_t* bs, int sb, int lp,
+                                         int length, int vec, int swap,
+                                         long long* out, long long r0) {
+  constexpr int M = T / 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int acc[M][4][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0;
+  const int h = (swap && (g & 1)) ? 64 : 0;  // this lane's first piece
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < lp; c0 += CHUNK) {
+    uint4 q0[4], q1[4];
+    const uint8_t* bp = bs + g * sb + c0 + 16 * t;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      q0[nt] = *reinterpret_cast<const uint4*>(bp + nt * 8 * sb);
+      q1[nt] = *reinterpret_cast<const uint4*>(bp + nt * 8 * sb + 64);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      uint4 p0, p1, x0, x1;  // rows g and g + 8: bytes 16t.., 64 + 16t..
+      const int ra = m * 16 + g, rb = ra + 8;
+      if constexpr (BULK) {
+        const uint8_t* a = rows + (long long)ra * length + c0 + 16 * t;
+        const uint8_t* b = rows + (long long)rb * length + c0 + 16 * t;
+        const uint4 a1 = *reinterpret_cast<const uint4*>(a + h);
+        const uint4 a2 = *reinterpret_cast<const uint4*>(a + (64 - h));
+        const uint4 b1 = *reinterpret_cast<const uint4*>(b + h);
+        const uint4 b2 = *reinterpret_cast<const uint4*>(b + (64 - h));
+        p0 = h ? a2 : a1; p1 = h ? a1 : a2;
+        x0 = h ? b2 : b1; x1 = h ? b1 : b2;
+      } else {
+        const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+        const uint8_t* a = rows + (long long)ra * length;
+        const uint8_t* b = rows + (long long)rb * length;
+        const int col = c0 + 16 * t;
+        p0 = ra < valid ? piece_direct(a, col, length, vec) : z;
+        p1 = ra < valid ? piece_direct(a, col + 64, length, vec) : z;
+        x0 = rb < valid ? piece_direct(b, col, length, vec) : z;
+        x1 = rb < valid ? piece_direct(b, col + 64, length, vec) : z;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        mma_b1(acc[m][nt], p0.x, x0.x, p0.y, x0.y, q0[nt].x, q0[nt].y);
+        mma_b1(acc[m][nt], p0.z, x0.z, p0.w, x0.w, q0[nt].z, q0[nt].w);
+        mma_b1(acc[m][nt], p1.x, x1.x, p1.y, x1.y, q1[nt].x, q1[nt].y);
+        mma_b1(acc[m][nt], p1.z, x1.z, p1.w, x1.w, q1[nt].z, q1[nt].w);
       }
     }
   }
-  if (t < rows) out[r0 + t] = (long long)acc;
+
+  // acc[m][nt]: {row g, row g, row g + 8, row g + 8} x columns
+  // nt * 8 + 2t + {0, 1}
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    uint32_t lo = 0u, hi = 0u;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int j = nt * 8 + 2 * t;
+      lo |= ((uint32_t)acc[m][nt][0] & 1u) << j;
+      lo |= ((uint32_t)acc[m][nt][1] & 1u) << (j + 1);
+      hi |= ((uint32_t)acc[m][nt][2] & 1u) << j;
+      hi |= ((uint32_t)acc[m][nt][3] & 1u) << (j + 1);
+    }
+    lo |= __shfl_xor_sync(0xFFFFFFFFu, lo, 1);
+    lo |= __shfl_xor_sync(0xFFFFFFFFu, lo, 2);
+    hi |= __shfl_xor_sync(0xFFFFFFFFu, hi, 1);
+    hi |= __shfl_xor_sync(0xFFFFFFFFu, hi, 2);
+    const int r = m * 16 + g + (t == 1 ? 8 : 0);
+    if (t < 2 && r < valid) out[r0 + r] = (long long)(t == 0 ? lo : hi);
+  }
 }
 
-template <int ROWS>
-int launch(const void* buf, const void* tab, void* out, long long n,
-           int length, void* stream) {
-  const int vec =
-      (length % 16 == 0) && ((uintptr_t)buf % 16 == 0) ? 1 : 0;
-  const long long blocks = (n + ROWS - 1) / ROWS;
-  raw_crc_kernel<ROWS><<<(unsigned)blocks, ROWS, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(buf), static_cast<const uint32_t*>(tab),
-      static_cast<long long*>(out), n, length, vec);
+template <int T, bool BULK>
+__global__ void __launch_bounds__(THREADS)
+raw_crc_kernel(const uint8_t* __restrict__ buf,
+               const uint8_t* __restrict__ bcols, long long* __restrict__ out,
+               long long n, int length, int lp, int stages, int vec,
+               int swap) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int sb = lp + 64;  // B's smem column stride
+  uint8_t* bs = smem;
+  const int stage_bytes = ((T * length + 127) & ~127) + CHUNK;
+  uint8_t* ring = smem + 32 * sb;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      ring + (BULK ? WARPS * stages * stage_bytes : 0));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // B, once a block
+  const int per_col = lp / 16;
+  for (int i = threadIdx.x; i < 32 * per_col; i += THREADS) {
+    const int col = i / per_col, q = i - col * per_col;
+    *reinterpret_cast<uint4*>(bs + col * sb + q * 16) =
+        __ldg(reinterpret_cast<const uint4*>(bcols + (size_t)col * lp) + q);
+  }
+  if (BULK && threadIdx.x == 0) {
+    for (int i = 0; i < WARPS * stages; ++i) bar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long ntiles = (n + T - 1) / T;
+  const long long first = (long long)blockIdx.x * WARPS + warp;
+  const long long step = (long long)gridDim.x * WARPS;
+
+  if constexpr (BULK) {
+    uint8_t* mine = ring + warp * stages * stage_bytes;
+    uint64_t* mbar = bars + warp * stages;
+    auto issue = [&](long long tile, int s) {
+      const long long r0 = tile * T;
+      const long long cnt = min((long long)T, n - r0);
+      bulk_load(mine + s * stage_bytes, buf + r0 * length,
+                (uint32_t)(cnt * length), mbar + s);
+    };
+    if (lane == 0)
+      for (int s = 0; s < stages; ++s)
+        if (first + s * step < ntiles) issue(first + s * step, s);
+    int it = 0;
+    for (long long tile = first; tile < ntiles; tile += step, ++it) {
+      const int s = it % stages;
+      bar_wait(mbar + s, (uint32_t)((it / stages) & 1));
+      const long long r0 = tile * T;
+      tile_crc<T, true>(mine + s * stage_bytes,
+                        (int)min((long long)T, n - r0), bs, sb, lp, length,
+                        vec, swap, out, r0);
+      __syncwarp();
+      const long long next = tile + (long long)stages * step;
+      if (lane == 0 && next < ntiles) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(next, s);
+      }
+    }
+  } else {
+    for (long long tile = first; tile < ntiles; tile += step) {
+      const long long r0 = tile * T;
+      tile_crc<T, false>(buf + r0 * length, (int)min((long long)T, n - r0),
+                         bs, sb, lp, length, vec, 0, out, r0);
+    }
+  }
+}
+
+template <int T, bool BULK>
+int launch(const uint8_t* buf, const uint8_t* bcols, long long* out,
+           long long n, int length, int lp, int stages, int smem, int vec,
+           int swap, cudaStream_t stream) {
+  auto kernel = raw_crc_kernel<T, BULK>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long ntiles = (n + T - 1) / T;
+  const long long want = (ntiles + WARPS - 1) / WARPS;
+  const int blocks = (int)min(want, (long long)sms * per_sm);
+  kernel<<<blocks, THREADS, smem, stream>>>(buf, bcols, out, n, length, lp,
+                                            stages, vec, swap);
   return (int)cudaGetLastError();
+}
+
+template <int T>
+int launch_rows(const void* buf, const void* bcols, void* out, long long n,
+                int length, cudaStream_t stream) {
+  const int lp = (length + CHUNK - 1) / CHUNK * CHUNK;
+  const int bbytes = 32 * (lp + 64);
+  const int vec = (length % 16 == 0) && ((uintptr_t)buf % 16 == 0) ? 1 : 0;
+  const int stage_bytes = ((T * length + 127) & ~127) + CHUNK;
+  const int room = SMEM_MAX - bbytes - WARPS * MAX_STAGES * 8;
+  const int stages = min(MAX_STAGES, room / (WARPS * stage_bytes));
+  const uint8_t* b = static_cast<const uint8_t*>(buf);
+  const uint8_t* c = static_cast<const uint8_t*>(bcols);
+  long long* o = static_cast<long long*>(out);
+  if (vec && stages >= 2) {
+    // odd rows swap their pieces when the row stride is near 0 mod 128
+    const int swap = ((length + 32) & 127) < 64 ? 1 : 0;
+    const int smem = bbytes + WARPS * stages * stage_bytes + WARPS * stages * 8;
+    return launch<T, true>(b, c, o, n, length, lp, stages, smem, vec, swap,
+                           stream);
+  }
+  return launch<T, false>(b, c, o, n, length, lp, 0, bbytes, vec, 0, stream);
 }
 
 }  // namespace
 
-// buf: uint8 [n, length] contiguous; tab: uint32 [2 * length * 16]
-// nibble tables; out: int64 [n]; rows: rows per block, 128, 256 or 512.
-// Launches on `stream` and returns the cudaError_t of the launch (0 on
-// success; cudaErrorInvalidValue for another `rows`).  n >= 1,
-// length >= 1.
-extern "C" int raw_crc_launch_rows(const void* buf, const void* tab,
+// buf: uint8 [n, length] contiguous; bcols: uint8 [32, Lp], Lp = length
+// rounded up to 128, column j's byte i holding bit k of C[8i + k, j] and
+// zeros past length, 16-byte aligned; out: int64 [n]; rows: rows per
+// warp tile, 16, 32 or 64.  Launches on `stream` and returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue for
+// another `rows`).  n >= 1, 1 <= length <= 4096.
+extern "C" int raw_crc_launch_rows(const void* buf, const void* bcols,
                                    void* out, long long n, int length,
                                    int rows, void* stream) {
+  if (length < 1 || length > 4096) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   switch (rows) {
-    case 128: return launch<128>(buf, tab, out, n, length, stream);
-    case 256: return launch<256>(buf, tab, out, n, length, stream);
-    case 512: return launch<512>(buf, tab, out, n, length, stream);
+    case 16: return launch_rows<16>(buf, bcols, out, n, length, s);
+    case 32: return launch_rows<32>(buf, bcols, out, n, length, s);
+    case 64: return launch_rows<64>(buf, bcols, out, n, length, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

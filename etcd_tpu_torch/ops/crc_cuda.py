@@ -4,12 +4,17 @@ torch version, and the nvcc build that every kernel of the port shares.
 ``raw_crc_cuda`` replaces the TPU kernel ``etcd_tpu/ops/crc_pallas.py:
 _kernel`` (via ``raw_crc_pallas``): uint8 ``[N, L]`` right-aligned rows
 in, their raw CRC32C states out.  The kernel is CUDA C++ in
-``etcd_tpu_torch/csrc/raw_crc.cu`` (its header comment gives the design
-and its bound on the card), compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, loaded with ``ctypes``.
-Its ``rows`` argument (rows per block: 128, 256 or 512) is the tile
-that ``scripts/pallas_sweep.py:make_pallas_concat`` swept on the TPU;
-the main path runs 256.
+``etcd_tpu_torch/csrc/raw_crc.cu``, compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C entry point, loaded with
+``ctypes``.  Its design (the header comment gives it in full, with its
+bound on the card): the GF(2) contraction on the 1-bit tensor cores
+(``mma.sync`` m16n8k256 ``and.popc``), the rows' bytes as they lie in
+memory as the A operand, the contribution matrix packed to bits
+(:func:`bit_columns`) resident in shared memory as B, and each warp's
+tiles of rows brought in by ``cp.async.bulk`` through a ring of
+stages.  Its ``rows`` argument (rows per warp tile: 16, 32 or 64) is
+the tile that ``scripts/pallas_sweep.py:make_pallas_concat`` swept on
+the TPU; the main path runs :data:`DEFAULT_ROWS`.
 
 ``library_path``/``build``/``library`` serve every ``.cu`` file under
 ``csrc/``: each source is built at first use into
@@ -50,9 +55,16 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: rows per block that raw_crc.cu is instantiated for; 256 is the main
-#: path's
-ROWS_PER_BLOCK = (128, 256, 512)
+#: rows per warp tile that raw_crc.cu is instantiated for; the main
+#: path runs DEFAULT_ROWS
+ROWS_PER_TILE = (16, 32, 64)
+DEFAULT_ROWS = 32
+
+#: bytes of a row each step of the kernel contracts
+CHUNK = 128
+#: the widest row the kernel takes: its packed B operand (32 x L bytes)
+#: stays in shared memory
+MAX_LENGTH = 4096
 
 # Bytes of float32 bits the plain version unpacks at a time.
 _PLAIN_CHUNK_BYTES = 256 << 20
@@ -121,46 +133,48 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-# -- the kernel's tables -----------------------------------------------------
+# -- the kernel's B operand ------------------------------------------------
+
+
+def padded_width(length: int) -> int:
+    """``length`` rounded up to the kernel's 128-byte chunk."""
+    return -(-length // CHUNK) * CHUNK
 
 
 @functools.lru_cache(maxsize=16)
-def nibble_tables(length: int) -> np.ndarray:
-    """uint32 ``[2L * 16]``: entry ``(2i + h) * 16 + v`` is the raw-CRC
-    contribution of value ``v`` in nibble ``h`` (0 low, 1 high) of byte
-    ``i``, the XOR of the packed contribution-matrix rows of its set
-    bits.  The kernel folds each byte as two lookups in this table."""
-    c = contribution_matrix(length).astype(np.uint32)  # [8L, 32]
-    words = (c << np.arange(32, dtype=np.uint32)).sum(axis=1,
-                                                      dtype=np.uint32)
-    w = words.reshape(2 * length, 4)  # nibble q holds bits 4q .. 4q+3
-    v = np.arange(16)
-    tab = np.zeros((2 * length, 16), np.uint32)
-    for k in range(4):
-        tab ^= np.where(((v >> k) & 1).astype(bool)[None, :],
-                        w[:, k:k + 1], np.uint32(0))
-    return tab.reshape(-1)
+def bit_columns(length: int) -> np.ndarray:
+    """uint8 ``[32, Lp]`` (``Lp = padded_width(length)``): the
+    contribution matrix transposed and packed to bits, the kernel's B
+    operand.  Byte ``i`` of column ``j`` holds ``C[8i + k, j]`` at bit
+    ``k``, so it lines up bit for bit with byte ``i`` of a row; bytes
+    past ``length`` are 0."""
+    c = contribution_matrix(length).reshape(length, 8, 32)
+    weights = (1 << np.arange(8, dtype=np.uint16))[None, :, None]
+    packed = (c.astype(np.uint16) * weights).sum(axis=1).astype(np.uint8)
+    out = np.zeros((32, padded_width(length)), np.uint8)
+    out[:, :length] = packed.T
+    return out
 
 
 @functools.lru_cache(maxsize=32)
-def _tables_on(length: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(nibble_tables(length).view(np.int32)).to(device)
+def _columns_on(length: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(bit_columns(length)).to(device)
 
 
 # -- the wrapper and its plain version ---------------------------------------
 
 
-def raw_crc_cuda(buf: torch.Tensor, rows: int = 256) -> torch.Tensor:
+def raw_crc_cuda(buf: torch.Tensor, rows: int = DEFAULT_ROWS) -> torch.Tensor:
     """Raw CRC states of the right-aligned rows of ``buf``: int64 [N].
 
     ``buf`` must be a contiguous uint8 ``[N, L]`` CUDA tensor with
-    ``L >= 1``; ``rows`` is the kernel's rows per block, one of
-    :data:`ROWS_PER_BLOCK`.  Launches on the current stream and does
-    not wait; adds one to ``raw_crc_cuda.launches`` and to
+    ``1 <= L <= MAX_LENGTH``; ``rows`` is the kernel's rows per warp
+    tile, one of :data:`ROWS_PER_TILE`.  Launches on the current stream
+    and does not wait; adds one to ``raw_crc_cuda.launches`` and to
     ``raw_crc_cuda.launches_by[rows]`` for each launch."""
-    if rows not in ROWS_PER_BLOCK:
-        raise ValueError(f"raw_crc_cuda runs {ROWS_PER_BLOCK} rows per "
-                         f"block, not {rows!r}")
+    if rows not in ROWS_PER_TILE:
+        raise ValueError(f"raw_crc_cuda runs {ROWS_PER_TILE} rows per "
+                         f"tile, not {rows!r}")
     if buf.dtype != torch.uint8:
         raise ValueError(f"raw_crc_cuda needs uint8 rows, got {buf.dtype}")
     if buf.dim() != 2:
@@ -172,16 +186,17 @@ def raw_crc_cuda(buf: torch.Tensor, rows: int = 256) -> torch.Tensor:
     if not buf.is_contiguous():
         raise ValueError("raw_crc_cuda needs contiguous rows")
     n, length = buf.shape
-    if length < 1:
-        raise ValueError("raw_crc_cuda needs rows of at least one byte")
+    if not 1 <= length <= MAX_LENGTH:
+        raise ValueError(f"raw_crc_cuda takes rows of 1 to {MAX_LENGTH} "
+                         f"bytes, not {length}")
     out = torch.empty(n, dtype=torch.int64, device=buf.device)
     if n == 0:
         return out
-    tab = _tables_on(length, buf.device)
+    cols = _columns_on(length, buf.device)
     lib = _library()
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        err = lib.raw_crc_launch_rows(buf.data_ptr(), tab.data_ptr(),
+        err = lib.raw_crc_launch_rows(buf.data_ptr(), cols.data_ptr(),
                                       out.data_ptr(), n, length, rows,
                                       stream)
     if err != 0:
@@ -192,7 +207,7 @@ def raw_crc_cuda(buf: torch.Tensor, rows: int = 256) -> torch.Tensor:
 
 
 raw_crc_cuda.launches = 0
-raw_crc_cuda.launches_by = dict.fromkeys(ROWS_PER_BLOCK, 0)
+raw_crc_cuda.launches_by = dict.fromkeys(ROWS_PER_TILE, 0)
 
 
 def raw_crc_plain(buf: torch.Tensor) -> torch.Tensor:

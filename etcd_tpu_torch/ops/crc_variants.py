@@ -99,8 +99,8 @@ def _pallas_planes(buf: torch.Tensor, tile: int, transposed: bool,
 
     The TPU kernel halved its tile until its VMEM working set fitted a
     budget (``_planes_tile_for``).  The Hopper kernel's shared memory
-    does not grow with the tile (a block walks its tile in passes of 64
-    rows), so the tile runs as asked, and one the kernel cannot take
+    does not grow with the tile (a block walks its tile in passes of up
+    to 512 rows), so the tile runs as asked, and one the kernel cannot take
     (not in ``planes_cuda.TILES``) raises ValueError."""
     if buf.device.type == "cpu":
         return planes_crc_plain(buf, tile, transposed, perturb)

@@ -15,11 +15,17 @@ each right-aligned row of ``buf ^ perturb``:
 
 The kernel is CUDA C++ in ``etcd_tpu_torch/csrc/planes_crc.cu`` (its
 header gives the design and its bound on the card), built by the same
-nvcc path as the raw-CRC kernel (``crc_cuda.build``).  Its shared
+nvcc path as the raw-CRC kernel (``crc_cuda.build``).  Its design: the
+bit planes are made in registers from the rows' words (never staged),
+the plane matrices (:func:`plane_columns`, each ``C_k^T`` with K
+contiguous) sit in shared memory, resident where they fit and streamed
+in K-chunks otherwise; ``transposed=False`` multiplies with ``wgmma``
+(the planes as A from registers), ``transposed=True`` with ``mma.sync``
+(``C_k^T`` as A through ``ldmatrix``, the planes as B).  Its shared
 memory does not grow with the tile (the tile is rows per block, walked
-in passes of 64), so unlike the TPU kernel it never shrinks a tile to
-fit; it takes multiples of 64 up to 2048 (:data:`TILES`) and the
-wrapper raises on any other.
+in passes of up to 512), so unlike the TPU kernel it never shrinks a
+tile to fit; it takes multiples of 64 up to 2048 (:data:`TILES`) and
+the wrapper raises on any other.
 
 ``planes_crc_plain`` is the same function in plain torch: unpack plane
 by plane (``((x ^ p) >> k) & 1``), 8 float32 products, parity, pack,
@@ -64,13 +70,34 @@ def plane_matrices(length: int) -> np.ndarray:
         c.reshape(length, 8, 32).transpose(1, 0, 2))
 
 
+#: the kernel's K-chunk: C_k^T is padded to a multiple of it
+CHUNK = 64
+
+
+@functools.lru_cache(maxsize=16)
+def plane_columns(length: int) -> np.ndarray:
+    """int8 ``[8, 32, Lc]``, ``Lc`` = ``length`` rounded up to
+    :data:`CHUNK`: each plane's ``C_k^T`` with K contiguous, zeros past
+    ``length``.  The kernel's host operand, for both operand types: it
+    copies it into shared memory as 16-byte cores of one column (and
+    widens them to bf16 there)."""
+    lc = -(-length // CHUNK) * CHUNK
+    out = np.zeros((8, 32, lc), np.int8)
+    out[:, :, :length] = plane_matrices(length).transpose(0, 2, 1)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _columns_on(length: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(plane_columns(length)).to(device)
+
+
 @functools.lru_cache(maxsize=32)
-def _planes_on(length: int, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
-    """:func:`plane_matrices` as ``dtype``, uploaded once per (length,
-    type, device)."""
+def _planes_f32(length: int, device: torch.device) -> torch.Tensor:
+    """:func:`plane_matrices` as float32, uploaded once per (length,
+    device): the plain version's operand."""
     return torch.from_numpy(plane_matrices(length)).to(device=device,
-                                                       dtype=dtype)
+                                                       dtype=torch.float32)
 
 
 def check_args(buf: torch.Tensor, tile: int, operand: str) -> None:
@@ -124,7 +151,7 @@ def planes_crc_cuda(buf: torch.Tensor, tile: int = 1024,
     out = torch.empty(n, dtype=torch.int64, device=buf.device)
     if n == 0:
         return out
-    ck = _planes_on(length, OPERANDS[operand], buf.device)
+    ck = _columns_on(length, buf.device)
     lib = _library()
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
@@ -155,7 +182,7 @@ def plane_parity(buf: torch.Tensor, mask: int = 1,
     module docstring), ``C_k^T @ p^T`` when ``transposed``, in row
     chunks."""
     n, length = buf.shape
-    ck = _planes_on(length, torch.float32, buf.device)
+    ck = _planes_f32(length, buf.device)
     step = max(1, _PLAIN_CHUNK_BYTES // (4 * length))
     out = torch.empty(n, dtype=torch.int64, device=buf.device)
     for r0 in range(0, n, step):

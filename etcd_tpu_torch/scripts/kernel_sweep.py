@@ -15,8 +15,9 @@ the rate of its operand type (``roofline.crc_bound``).  Rows:
 ``xla_int8`` and ``xla_bf16`` are the plain versions (the unpack
 + one product, and the plane-by-plane products that the bf16 kernel
 computes, in float32 since a bf16 product in torch rounds its output);
-``pallas_current`` is ``csrc/raw_crc.cu`` at the main path's 256 rows a
-block; ``pallas_cat`` is it at 128/256/512 rows (TPU kernel 5's tile);
+``pallas_current`` is ``csrc/raw_crc.cu`` at the main path's rows a
+tile; ``pallas_cat`` is it at 16/32/64 rows a warp tile (TPU kernel 5's
+tile);
 ``pallas_pl8`` and ``pallas_bf16`` are ``csrc/planes_crc.cu`` at tiles
 512/1024/2048 in int8 and 1024/2048 in bf16 (TPU kernel 4), and
 ``pallas_bf16_t`` its transposed bf16 form.  On the CPU only the plain
@@ -34,7 +35,7 @@ import torch
 
 from ..crc import crc32c
 from ..obs import roofline
-from ..ops.crc_cuda import raw_crc_cuda, raw_crc_plain
+from ..ops.crc_cuda import ROWS_PER_TILE, raw_crc_cuda, raw_crc_plain
 from ..ops.planes_cuda import planes_crc_cuda, planes_crc_plain
 from .crc_variants_bench import device_name, time_loop
 
@@ -51,7 +52,7 @@ def sweep_rows(device: torch.device) -> list[tuple[str, object, str]]:
         return rows
     rows.append(("pallas_current", raw_crc_cuda, "int8"))
     rows += [(f"pallas_cat t{r}", functools.partial(raw_crc_cuda, rows=r),
-              "int8") for r in (128, 256, 512)]
+              "int8") for r in ROWS_PER_TILE]
     rows += [(f"pallas_pl8 t{t}", functools.partial(planes_crc_cuda,
                                                     tile=t), "int8")
              for t in (512, 1024, 2048)]

@@ -4,8 +4,8 @@ package's on the same numpy inputs: exact equality everywhere.
 On the CPU the port runs the raw CRC's plain torch version; the CUDA
 kernel is held against that version on the card by chip_smoke.py.  Here
 the JAX side is both its XLA path and its Pallas kernel in interpret
-mode, and the kernel's nibble tables are checked by folding rows with
-them in numpy exactly as the kernel does.
+mode.  The kernel's operand layout is checked in
+tests/test_torch_crc_layouts.py.
 """
 
 import numpy as np
@@ -71,19 +71,6 @@ def test_raw_crc_batch_parity(length, n):
     assert np.array_equal(got, pallas)
     host = np.array([tcrc32c.raw_update(0, m) for m in msgs], np.uint32)
     assert np.array_equal(got, host)
-
-
-@pytest.mark.parametrize("length", [8, 64, 384])
-def test_nibble_tables_fold_like_the_kernel(length):
-    """raw_crc.cu folds each byte as tab[2i][b & 15] ^ tab[2i+1][b >> 4];
-    the same fold in numpy must give the raw CRC."""
-    buf, _, _ = _records(length, 300, length)
-    tab = crc_cuda.nibble_tables(length).reshape(2 * length, 16)
-    acc = np.zeros(buf.shape[0], np.uint32)
-    for i in range(length):
-        acc ^= tab[2 * i][buf[:, i] & 15] ^ tab[2 * i + 1][buf[:, i] >> 4]
-    assert np.array_equal(
-        acc, np.asarray(jdev.raw_crc_batch(buf, use_pallas=False)))
 
 
 def test_raw_crc_routes_by_device():

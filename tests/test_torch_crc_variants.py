@@ -186,11 +186,11 @@ def test_planes_cuda_argument_checks(kind):
 @pytest.mark.parametrize("kind", ["cpu", "dtype", "rows"])
 def test_raw_crc_cuda_argument_checks(kind):
     x = torch.zeros((4, 16), dtype=torch.uint8)
-    buf, rows, match = {"cpu": (x, 256, "CUDA tensor"),
-                        "dtype": (x.to(torch.int16), 256, "uint8"),
-                        "rows": (x, 1024, "rows per block")}[kind]
+    buf, rows, match = {"cpu": (x, 32, "CUDA tensor"),
+                        "dtype": (x.to(torch.int16), 32, "uint8"),
+                        "rows": (x, 1024, "rows per tile")}[kind]
     with pytest.raises(ValueError, match=match):
         crc_cuda.raw_crc_cuda(buf, rows)
-    for bad in (64, 300, 0):
-        with pytest.raises(ValueError, match="rows per block"):
+    for bad in (128, 48, 0):
+        with pytest.raises(ValueError, match="rows per tile"):
             crc_cuda.raw_crc_cuda(x, bad)
