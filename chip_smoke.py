@@ -60,11 +60,7 @@ DATA_SEED = 20261016
 RACE_ITERS = 8
 SWEEP_K = 12
 
-# The kernels' designs, and the times of the designs they replaced at
-# 1M x 384 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6, the
-# port's run A of the race and sweep slice): the nibble-table fold at
-# 256, 128 and 512 rows a block, which the 32-, 16- and 64-row tiles
-# replace, and the WMMA planes kernel at tile 1024.
+# The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
               "resident in smem as B; cp.async.bulk ring per warp")
 PLANES_DESIGN = {
@@ -73,13 +69,6 @@ PLANES_DESIGN = {
            "pass)",
     True: "mma.sync m16n8k32 s8 / m16n8k16 bf16: C_k^T in smem via "
           "ldmatrix as A, planes in registers as B"}
-PREV_MS = {"raw_crc": 0.33718399703502655,
-           "raw_crc@16": 0.3535040020942688,
-           "raw_crc@64": 0.3341439962387085,
-           "planes_crc int8": 2.721216082572937,
-           "planes_crc_t int8": 2.6980639696121216,
-           "planes_crc bf16": 4.843648195266724,
-           "planes_crc_t bf16": 4.9490721225738525}
 
 
 def check(ok, what: str) -> None:
@@ -415,7 +404,7 @@ def main() -> int:
     for what, count in [*raw_by.items(), *planes_by.items()]:
         check(count > 0, f"no launch of {what} in the race or the sweep")
     kernels = [{
-        "name": f"raw_crc@{crc_cuda.DEFAULT_ROWS}", "route": "cuda",
+        "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
         "replaces": "etcd_tpu/ops/crc_pallas.py:40",
         "launches": launches, "max_abs_err": max_abs_err,
@@ -423,7 +412,7 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound["bound_by"],
         "library_ms": None,
-        "design": RAW_DESIGN, "prev_ms": PREV_MS["raw_crc"],
+        "design": RAW_DESIGN, "rows": crc_cuda.DEFAULT_ROWS,
         "shape": [N, WIDTH], "step_ms": step_ms,
     }]
     for per_tile in swept:
@@ -435,8 +424,8 @@ def main() -> int:
             "launches": raw_by[per_tile], "max_abs_err": err_,
             "bit_exact": err_ == 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound["bound_by"],
-            "library_ms": None, "design": RAW_DESIGN,
-            "prev_ms": PREV_MS[f"raw_crc@{per_tile}"], "shape": [N, WIDTH]})
+            "library_ms": None, "design": RAW_DESIGN, "rows": per_tile,
+            "shape": [N, WIDTH]})
     replaces = {(False, "int8"): "etcd_tpu/ops/crc_variants.py:149",
                 (True, "int8"): "etcd_tpu/ops/crc_variants.py:167",
                 (False, "bf16"): "scripts/pallas_sweep.py:102",
@@ -450,9 +439,7 @@ def main() -> int:
             "max_abs_err": err_, "bit_exact": err_ == 0, "ms": ms,
             "plain_ms": plain_t, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,
-            "design": PLANES_DESIGN[t],
-            "prev_ms": PREV_MS[f"planes_crc{'_t' if t else ''} {op}"],
-            "shape": [N, WIDTH], "tile": 1024})
+            "design": PLANES_DESIGN[t], "shape": [N, WIDTH], "tile": 1024})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -83,15 +83,26 @@
 // bf16 0.35-0.70 ms, the transposed forms within 30% of the others.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W,
-// tile 1024: int8 0.328 ms (37% of the bound), bf16 0.636 ms (33% of
-// its operation bound), transposed 0.454 and 0.812 ms; 8.3x and 7.6x
-// faster than the WMMA design, short of the targets (before the wgmma
-// batches were pipelined: int8 0.384, bf16 0.724 ms).  What is left,
-// unmeasured: the transposed form issues 24.6e6 int8 mma.sync at
-// 1M x 384, 0.18 ms at the probe's 134 a ns (scripts/mma_rate.py);
-// wgmma at N = 32 may not reach the int8 rate; the planes cost 2 (int8)
-// or 3 (bf16) integer instructions an operand register; and with one
-// block of 8 warps an SM, the chunk barriers are exposed.
+// tile 1024: int8 0.309-0.328 ms (37-39% of the bound), bf16 0.636-0.645
+// ms (32-33% of its operation bound), transposed 0.417-0.454 and
+// 0.80-0.81 ms; 8.3x and 7.6x faster than the WMMA design, short of the
+// targets.  Where the time goes (scripts/kernel_probe.py parts: the
+// kernel built without a part, 10 launches back to back; same card), ms
+// for int8 / bf16 / int8 transposed / bf16 transposed:
+//   the kernel        0.282 / 0.591 / 0.385 / 0.743
+//   no products       0.212 / 0.256 / 0.210 / 0.244
+//   no row copies     0.211 / 0.534 / 0.293 / 0.675
+//   neither           0.030 / 0.150 / 0.018 / 0.130
+//   no plane making   0.221 / 0.442 / 0.336 / 0.593
+// (1) The staging pipeline alone streams the rows at 57% of the memory
+// rate: one block an SM (the ring and C fill shared memory; 223-250
+// registers a thread in the wgmma forms) keeps two 32 KB chunks in
+// flight behind a block-wide barrier a chunk.  (2) The products alone
+// take as long in int8, twice the int8 peak's time; in bf16 making the
+// planes costs 0.15 ms (SASS: 11 integer instructions a HGMMA in the
+// product loop, 7 a IGMMA in int8) and streaming and widening C 0.13-
+// 0.15 ms.  (3) The two overlap only in part.  Reaching half the bound
+// takes all three changed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,7 +110,22 @@
 
 #include <type_traits>
 
+#include "grid.cuh"
+
+// Diagnostic builds for scripts/kernel_probe.py, which times what each
+// part of the kernel costs: PLANES_PROBE is a bit mask, 1 = issue no
+// products, 2 = copy no rows into shared memory, 4 = make no planes (the
+// row words go to the products as they are).  Their results are wrong by
+// design.  The kernel is the default build, 0.
+#ifndef PLANES_PROBE
+#define PLANES_PROBE 0
+#endif
+
 namespace {
+
+constexpr bool kProducts = !(PLANES_PROBE & 1);
+constexpr bool kRowCopies = !(PLANES_PROBE & 2);
+constexpr bool kPlanes = !(PLANES_PROBE & 4);
 
 constexpr int WGS = 2;                // warpgroups a block
 constexpr int THREADS = 128 * WGS;
@@ -214,6 +240,11 @@ template <> struct Op<int8_t> {
   __device__ static void regs(uint32_t (&r)[4], uint32_t wa, uint32_t wb,
                               int p) {
     const uint32_t m = 0x01010101u;
+    if (!kPlanes) {
+      r[0] = r[2] = wa;
+      r[1] = r[3] = wb;
+      return;
+    }
     r[0] = (wa >> p) & m;        // row g, plane p
     r[1] = (wb >> p) & m;        // row g + 8
     r[2] = (wa >> (p + 4)) & m;  // row g, plane p + 4
@@ -237,6 +268,11 @@ template <> struct Op<__nv_bfloat16> {
   static constexpr int core_bytes = 2 * 32 * 16;  // two halves
   __device__ static void regs(uint32_t (&r)[4], uint32_t wa, uint32_t wb,
                               int p) {
+    if (!kPlanes) {
+      r[0] = r[2] = wa;
+      r[1] = r[3] = wb;
+      return;
+    }
     r[0] = widen(wa >> p);        // row g, even bytes
     r[1] = widen(wb >> p);        // row g + 8
     r[2] = widen(wa >> (p + 8));  // row g, odd bytes
@@ -325,7 +361,7 @@ planes_crc_kernel(const uint8_t* __restrict__ buf,
   auto stage = [&](Work w, int b) {
     const long long end = min(w.r0 + PASS, tile_end(w.tile));
     uint8_t* dst = rowbuf + b * ROWBUF;
-    for (int p = tid; p < PASS * GPC; p += THREADS) {
+    for (int p = tid; kRowCopies && p < PASS * GPC; p += THREADS) {
       const int r = p / GPC, gg = p - r * GPC;
       const int col = w.c0 + 16 * gg;
       const bool in = w.r0 + r < end && col < length;
@@ -435,7 +471,7 @@ planes_crc_kernel(const uint8_t* __restrict__ buf,
           const uint64_t bd = Op<T>::bdesc(cs, ng, g0 + gg, p0 + p);
 #pragma unroll
           for (int s = 0; s < SUB; ++s)  // no branch: a guard serializes
-            wgmma(acc[s], r[bi & 1][p][s], bd);
+            if constexpr (kProducts) wgmma(acc[s], r[bi & 1][p][s], bd);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         if (bi + 1 < NB) {
@@ -465,7 +501,7 @@ planes_crc_kernel(const uint8_t* __restrict__ buf,
             uint32_t r[4];
             Op<T>::regs(r, wa[s], wb[s], p);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < 2 && kProducts; ++mt) {
               A (&d)[16] = acc[s];
               mma(*reinterpret_cast<A(*)[4]>(&d[mt * 8]), ca[mt], r[0],
                   r[2]);  // data rows g: n-tile 0
@@ -534,19 +570,11 @@ int launch(const void* buf, const void* ckt, void* out, long long n,
            int length, int lc, int tile, uint32_t pmask, int vec, int smem,
            cudaStream_t stream) {
   auto kernel = planes_crc_kernel<TRANS, T, RESIDENT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int resident = 0;
+  const cudaError_t e = resident_blocks(kernel, THREADS, smem, &resident);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long ntiles = (n + tile - 1) / tile;
-  const int blocks = (int)min(ntiles, (long long)sms * per_sm);
+  const int blocks = (int)min(ntiles, (long long)resident);
   kernel<<<blocks, THREADS, smem, stream>>>(
       static_cast<const uint8_t*>(buf), static_cast<const uint8_t*>(ckt),
       static_cast<long long*>(out), n, length, lc, tile, pmask, vec);

@@ -51,10 +51,14 @@
 //     memory: a tile of R rows is R*L contiguous bytes, so one
 //     cp.async.bulk with an mbarrier brings it in while the tiles before it
 //     are multiplied.  No block-wide barrier after the start.
-//   - Bank conflicts: a quarter-warp reads rows g and g + 1 of a stage,
-//     L bytes apart.  When L mod 128 is near 0 the odd rows read their
-//     two 16-byte pieces in the other order (`swap`), so the eight lanes
-//     cover 128 distinct bytes; B's smem column stride is Lp + 64.
+//   - Bank conflicts: B's smem column stride is Lp + 64, so a
+//     quarter-warp's two columns fall on distinct banks.  A quarter-warp
+//     also reads rows g and g + 1 of a stage, L bytes apart, which share
+//     banks when L mod 128 is near 0 (L = 384).  Reading odd rows' two
+//     pieces in the other order removes that 2-way conflict, but it
+//     moved no rows value by more than 1.3% (scripts/kernel_probe.py,
+//     both versions in one call; NVIDIA H100 80GB HBM3 at 700.00 W), so
+//     the kernel does not do it.
 //   - Edge cases: a base that is not 16-byte aligned, L % 16 != 0, or an L
 //     whose stages do not fit beside B (L > ~1 KB) take the direct path:
 //     the same products with the fragments read straight from device
@@ -63,13 +67,19 @@
 //
 // Prediction (before the first run on the card): 0.14-0.20 ms at
 // 1M x 384 (60-85% of the bound), at every rows value within 15%.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W
-// (two runs): 0.173-0.179 ms at 32 rows a tile (68-70% of the bound,
-// 2.2-2.3 TB/s of rows), 0.169-0.180 and 0.174-0.184 ms at 16 and 64;
-// the nibble-table fold took 0.337 ms.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W: chip_smoke.py (one
+// launch at a time, the launch's host cost included) 0.163-0.179 ms at
+// 32 rows a tile (68-74% of the bound), 0.169-0.180 and 0.174-0.184 ms
+// at 16 and 64; scripts/kernel_probe.py (10 launches back to back)
+// 0.148-0.150 ms at 32 rows (81-82%, 2.7 TB/s of rows).  The
+// nibble-table fold took 0.337 ms.  SASS (kernel_probe.py sass): a
+// native BMMA.168256.AND.POPC, 85 integer instructions to 32 BMMA in the
+// bulk path's tile loop at 32 rows, no local memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid.cuh"
 
 namespace {
 
@@ -148,7 +158,7 @@ __device__ __forceinline__ uint4 piece_direct(const uint8_t* row, int col,
 template <int T, bool BULK>
 __device__ __forceinline__ void tile_crc(const uint8_t* rows, int valid,
                                          const uint8_t* bs, int sb, int lp,
-                                         int length, int vec, int swap,
+                                         int length, int vec,
                                          long long* out, long long r0) {
   constexpr int M = T / 16;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -159,7 +169,6 @@ __device__ __forceinline__ void tile_crc(const uint8_t* rows, int valid,
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0;
-  const int h = (swap && (g & 1)) ? 64 : 0;  // this lane's first piece
 
 #pragma unroll 1
   for (int c0 = 0; c0 < lp; c0 += CHUNK) {
@@ -177,12 +186,10 @@ __device__ __forceinline__ void tile_crc(const uint8_t* rows, int valid,
       if constexpr (BULK) {
         const uint8_t* a = rows + (long long)ra * length + c0 + 16 * t;
         const uint8_t* b = rows + (long long)rb * length + c0 + 16 * t;
-        const uint4 a1 = *reinterpret_cast<const uint4*>(a + h);
-        const uint4 a2 = *reinterpret_cast<const uint4*>(a + (64 - h));
-        const uint4 b1 = *reinterpret_cast<const uint4*>(b + h);
-        const uint4 b2 = *reinterpret_cast<const uint4*>(b + (64 - h));
-        p0 = h ? a2 : a1; p1 = h ? a1 : a2;
-        x0 = h ? b2 : b1; x1 = h ? b1 : b2;
+        p0 = *reinterpret_cast<const uint4*>(a);
+        p1 = *reinterpret_cast<const uint4*>(a + 64);
+        x0 = *reinterpret_cast<const uint4*>(b);
+        x1 = *reinterpret_cast<const uint4*>(b + 64);
       } else {
         const uint4 z = make_uint4(0u, 0u, 0u, 0u);
         const uint8_t* a = rows + (long long)ra * length;
@@ -229,8 +236,7 @@ template <int T, bool BULK>
 __global__ void __launch_bounds__(THREADS)
 raw_crc_kernel(const uint8_t* __restrict__ buf,
                const uint8_t* __restrict__ bcols, long long* __restrict__ out,
-               long long n, int length, int lp, int stages, int vec,
-               int swap) {
+               long long n, int length, int lp, int stages, int vec) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int sb = lp + 64;  // B's smem column stride
   uint8_t* bs = smem;
@@ -276,7 +282,7 @@ raw_crc_kernel(const uint8_t* __restrict__ buf,
       const long long r0 = tile * T;
       tile_crc<T, true>(mine + s * stage_bytes,
                         (int)min((long long)T, n - r0), bs, sb, lp, length,
-                        vec, swap, out, r0);
+                        vec, out, r0);
       __syncwarp();
       const long long next = tile + (long long)stages * step;
       if (lane == 0 && next < ntiles) {
@@ -288,7 +294,7 @@ raw_crc_kernel(const uint8_t* __restrict__ buf,
     for (long long tile = first; tile < ntiles; tile += step) {
       const long long r0 = tile * T;
       tile_crc<T, false>(buf + r0 * length, (int)min((long long)T, n - r0),
-                         bs, sb, lp, length, vec, 0, out, r0);
+                         bs, sb, lp, length, vec, out, r0);
     }
   }
 }
@@ -296,24 +302,16 @@ raw_crc_kernel(const uint8_t* __restrict__ buf,
 template <int T, bool BULK>
 int launch(const uint8_t* buf, const uint8_t* bcols, long long* out,
            long long n, int length, int lp, int stages, int smem, int vec,
-           int swap, cudaStream_t stream) {
+           cudaStream_t stream) {
   auto kernel = raw_crc_kernel<T, BULK>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int resident = 0;
+  const cudaError_t e = resident_blocks(kernel, THREADS, smem, &resident);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long ntiles = (n + T - 1) / T;
   const long long want = (ntiles + WARPS - 1) / WARPS;
-  const int blocks = (int)min(want, (long long)sms * per_sm);
+  const int blocks = (int)min(want, (long long)resident);
   kernel<<<blocks, THREADS, smem, stream>>>(buf, bcols, out, n, length, lp,
-                                            stages, vec, swap);
+                                            stages, vec);
   return (int)cudaGetLastError();
 }
 
@@ -330,13 +328,10 @@ int launch_rows(const void* buf, const void* bcols, void* out, long long n,
   const uint8_t* c = static_cast<const uint8_t*>(bcols);
   long long* o = static_cast<long long*>(out);
   if (vec && stages >= 2) {
-    // odd rows swap their pieces when the row stride is near 0 mod 128
-    const int swap = ((length + 32) & 127) < 64 ? 1 : 0;
     const int smem = bbytes + WARPS * stages * stage_bytes + WARPS * stages * 8;
-    return launch<T, true>(b, c, o, n, length, lp, stages, smem, vec, swap,
-                           stream);
+    return launch<T, true>(b, c, o, n, length, lp, stages, smem, vec, stream);
   }
-  return launch<T, false>(b, c, o, n, length, lp, 0, bbytes, vec, 0, stream);
+  return launch<T, false>(b, c, o, n, length, lp, 0, bbytes, vec, stream);
 }
 
 }  // namespace

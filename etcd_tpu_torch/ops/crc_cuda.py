@@ -18,9 +18,9 @@ the TPU; the main path runs :data:`DEFAULT_ROWS`.
 
 ``library_path``/``build``/``library`` serve every ``.cu`` file under
 ``csrc/``: each source is built at first use into
-``etcd_tpu_torch/build/``, named by a hash of that source and the
-flags, with nvcc's report kept beside it as ``.log``; a failed build
-raises with nvcc's stderr.
+``etcd_tpu_torch/build/``, named by a hash of that source, the shared
+headers (``csrc/*.cuh``) and the flags, with nvcc's report kept beside
+it as ``.log``; a failed build raises with nvcc's stderr.
 
 ``raw_crc_plain`` is the same function in plain torch ops (unpack the
 bits, multiply by the contribution matrix, take parity, pack), in row
@@ -82,26 +82,37 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def library_path(source: Path = SOURCE) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(source: Path = SOURCE,
+                 defines: tuple[str, ...] = ()) -> Path:
     """Where the library built from ``source`` lives, keyed by the
-    source's bytes and the flags."""
+    source's bytes, the headers under ``csrc/`` it may include, the
+    flags and the ``defines``."""
     h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(source: Path = SOURCE) -> Path:
+def build(source: Path = SOURCE, defines: tuple[str, ...] = ()) -> Path:
     """Compile ``source`` unless the library for its bytes exists.
 
-    nvcc's report (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside the library with the suffix ``.log``.  Builds of two
-    sources may run at once (each writes its own temporary file)."""
-    so = library_path(source)
+    ``defines`` (``NAME=VALUE``) go to nvcc as ``-D`` flags: the
+    diagnostic builds of ``scripts/kernel_probe.py``; the port's own
+    libraries have none.  nvcc's report (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside the library with the suffix
+    ``.log``.  Builds of two sources may run at once (each writes its
+    own temporary file)."""
+    so = library_path(source, defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:

@@ -117,15 +117,20 @@ def check_args(buf: torch.Tensor, tile: int, operand: str) -> None:
                          f"{sorted(OPERANDS)}, not {operand!r}")
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = library(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry ``planes_crc_launch`` of a library built from
+    :data:`SOURCE` (this one, or a diagnostic build of it)."""
     lib.planes_crc_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.planes_crc_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return bind(library(SOURCE))
 
 
 def planes_crc_cuda(buf: torch.Tensor, tile: int = 1024,

@@ -8,9 +8,8 @@ the CPU).
   ``crc_cuda.bit_columns`` (the contribution matrix transposed and
   packed to bits).  The emulation walks the kernel's 128-byte chunks and
   its lanes' 16-byte pieces, feeds the words to the four k-steps of
-  ``mma.sync.m16n8k256.and.popc`` in the kernel's order (also with the
-  bank-conflict swap of odd rows), and takes the parity of the
-  popcounts of AND.
+  ``mma.sync.m16n8k256.and.popc`` in the kernel's order, and takes the
+  parity of the popcounts of AND.
 - ``csrc/planes_crc.cu`` takes ``planes_cuda.plane_columns`` (each
   plane's C_k^T, K contiguous) and orders the contraction so that an
   operand register is a row word shifted and masked: ``(w >> P) &
@@ -52,28 +51,22 @@ def _reference(rows):
     return np.asarray(jdev.raw_crc_batch(rows, use_pallas=False))
 
 
-def _emulate_raw_crc(rows, swap):
+def _emulate_raw_crc(rows):
     """raw_crc.cu's arithmetic in numpy: for each 128-byte chunk and
-    lane t, the pieces at c0 + 16t and c0 + 64 + 16t (read in the other
-    order by odd rows when ``swap``), four k-steps of (a0, a2) words
-    against the same words of each B column, popcount of AND, parity."""
+    lane t, the pieces at c0 + 16t and c0 + 64 + 16t, four k-steps of
+    (a0, a2) words against the same words of each B column, popcount of
+    AND, parity."""
     n, length = rows.shape
     cols = crc_cuda.bit_columns(length)            # [32, Lp]
     lp = cols.shape[1]
-    padded = np.zeros((n, lp + 64), np.uint8)      # reads stay in bounds
+    padded = np.zeros((n, lp), np.uint8)
     padded[:, :length] = rows
     acc = np.zeros((n, 32), np.int64)
-    odd = (np.arange(n) & 1).astype(bool) & swap
     for c0 in range(0, lp, crc_cuda.CHUNK):
         for t in range(4):
             lo, hi = c0 + 16 * t, c0 + 64 + 16 * t
-            first = np.where(odd[:, None], padded[:, hi:hi + 16],
-                             padded[:, lo:lo + 16])
-            second = np.where(odd[:, None], padded[:, lo:lo + 16],
-                              padded[:, hi:hi + 16])
-            # the kernel swaps them back in registers
-            p0 = np.where(odd[:, None], second, first).view("<u4")
-            p1 = np.where(odd[:, None], first, second).view("<u4")
+            p0 = np.ascontiguousarray(padded[:, lo:lo + 16]).view("<u4")
+            p1 = np.ascontiguousarray(padded[:, hi:hi + 16]).view("<u4")
             q0 = np.ascontiguousarray(cols[:, lo:lo + 16]).view("<u4")
             q1 = np.ascontiguousarray(cols[:, hi:hi + 16]).view("<u4")
             for a, b in ((p0, q0), (p1, q1)):
@@ -87,10 +80,7 @@ def _emulate_raw_crc(rows, swap):
 @pytest.mark.parametrize("length", LENGTHS)
 def test_bit_columns_through_the_1bit_products(length):
     rows = _rows(length, 40, length)
-    want = _reference(rows)
-    for swap in (False, True):
-        np.testing.assert_array_equal(_emulate_raw_crc(rows, swap), want,
-                                      err_msg=f"swap={swap}")
+    np.testing.assert_array_equal(_emulate_raw_crc(rows), _reference(rows))
 
 
 @pytest.mark.parametrize("length", LENGTHS)
