@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``etcd_tpu_torch/csrc`` with nvcc (one
-nvcc per source, all at once), measures the rate of the 1-bit and int8
+nvcc per source) and the native WAL scanner from ``native/walscan.cc``
+with g++, all at once, measures the rate of the 1-bit and int8
 ``mma.sync`` forms that the raw-CRC kernel chose between
 (``etcd_tpu_torch.scripts.mma_rate``), and holds each kernel bit for bit
-against its plain torch version.  Then it drives two paths at full size:
+against its plain torch version, the raw-CRC kernel also at rows wider
+than its 4096 bytes (L = 4097, 8192, 65536: folded from 4096-byte
+slabs).  Then it drives four paths at full size:
 
 1. the main path, ``etcd_tpu_torch.parallel.data_plane_step``: 1,048,576
    WAL records of 256-380 bytes in 384-byte rows (BASELINE config 1,
@@ -18,7 +21,20 @@ against its plain torch version.  Then it drives two paths at full size:
    crc_variants_bench``) on the same records, seed-injected, every
    variant gated by the full chain verify, and the kernels' tile and
    operand-type sweep (``etcd_tpu_torch.scripts.kernel_sweep``) on
-   [2^20, 384] random rows.
+   [2^20, 384] random rows;
+3. WAL replay (``etcd_tpu_torch.wal.replay_device.read_all_device``) at
+   BASELINE config 1: 1,048,576 entries of 256-byte payloads (~300 MB)
+   in 4 segment files, headed by the port's ``WAL.create`` and filled
+   by ``native.wal_gen``, replayed on the ``host``, ``device`` and
+   ``stream`` lanes, which must return equal results and name the same
+   record when one payload byte is flipped; then ~4,096 entries of 1 B
+   to 64 KiB payloads on all three lanes (rows wider than 4 KiB
+   through the kernel).  Prints each lane's entries/s and GB/s of WAL,
+   the stream lane's scan/H2D/verify seconds and the router's choice;
+4. the snapshot hash (``etcd_tpu_torch.ops.crc_kernel.device_crc32c``)
+   of 1 GiB of random bytes (BASELINE config 3) against
+   ``native.crc32c_update``, and ``snap.ChunkVerifier(route="device")``
+   over its 4 MiB chunks with one chunk corrupted.
 
 Each path is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Prints, on its last lines: one JSON
@@ -31,9 +47,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -42,16 +61,26 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from etcd_tpu_torch import native  # noqa: E402
 from etcd_tpu_torch.entry import group_args  # noqa: E402
 from etcd_tpu_torch.obs import roofline  # noqa: E402
-from etcd_tpu_torch.ops import crc_cuda, planes_cuda  # noqa: E402
+from etcd_tpu_torch.obs.metrics import registry  # noqa: E402
+from etcd_tpu_torch.ops import crc_cuda, crc_kernel, planes_cuda  # noqa: E402
 from etcd_tpu_torch.ops.crc_device import (  # noqa: E402
-    chain_verify_device, u32_tensor)
+    chain_verify_device, raw_crc_batch, u32_tensor)
 from etcd_tpu_torch.parallel import data_plane_step  # noqa: E402
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
     crc_variants_bench, kernel_sweep, mma_rate)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
+from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
+from etcd_tpu_torch.wal import WAL  # noqa: E402
+from etcd_tpu_torch.wal.backend_policy import (  # noqa: E402
+    DEFAULT_CHUNK_BYTES, BackendPolicy)
+from etcd_tpu_torch.wal.errors import CRCMismatchError  # noqa: E402
+from etcd_tpu_torch.wal.replay_device import (  # noqa: E402
+    _rows_per_chunk, read_all_device)
+from etcd_tpu_torch.wire import Entry, HardState, Record  # noqa: E402
 
 N, WIDTH, LEN_LO, LEN_HI = 1 << 20, 384, 256, 380
 G, M, CAP = 100_000, 5, 64
@@ -59,6 +88,13 @@ SEED_VAL = 0xDEADBEEF
 DATA_SEED = 20261016
 RACE_ITERS = 8
 SWEEP_K = 12
+# WAL replay, BASELINE config 1: 1M entries x 256 B payloads
+REPLAY_N, PAYLOAD, SEGMENTS = 1 << 20, 256, 4
+MIXED_N = 4096
+LANES = ("host", "device", "stream")
+META = b"chip_smoke"
+# snapshot hash, BASELINE config 3: 1 GiB, streamed in 4 MiB chunks
+SNAP_BYTES, SNAP_CHUNK = 1 << 30, 4 << 20
 
 # The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
@@ -77,11 +113,16 @@ def check(ok, what: str) -> None:
 
 
 def build_all() -> list:
-    """Build every kernel source at once, one nvcc each."""
+    """Build every kernel source and the native WAL scanner at once,
+    one compiler each; a failed build raises."""
     sources = (crc_cuda.SOURCE, planes_cuda.SOURCE, mma_rate.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as ex:
+    with ThreadPoolExecutor(len(sources) + 1) as ex:
         futures = [ex.submit(crc_cuda.build, src) for src in sources]
-        return [f.result() for f in futures]
+        walscan = ex.submit(native.build)
+        libs = [f.result() for f in futures]
+        walscan.result()
+    check(native.available(), "the native WAL scanner does not load")
+    return libs
 
 
 def reset_launches() -> None:
@@ -118,10 +159,11 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
 # -- phases ------------------------------------------------------------------
 
 
-def profile_step(args, reps: int = 5):
-    """Device busy time per step and the kernels that take it, from
-    torch.profiler over ``reps`` steps: (wall ms, busy ms, [(ms, name)])
-    per step.  The profiler's own host cost is in the wall time."""
+def profile_calls(fn, reps: int = 5):
+    """Device busy time per call of ``fn`` and the kernels that take it,
+    from torch.profiler over ``reps`` calls: (wall ms, busy ms,
+    [(ms, name)]) per call.  The profiler's own host cost is in the wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -129,7 +171,7 @@ def profile_step(args, reps: int = 5):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            data_plane_step(*args)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict[str, float] = {}
@@ -218,6 +260,339 @@ def planes_parity(rng) -> int:
     return cases
 
 
+def wide_parity(rng) -> int:
+    """``raw_crc_batch`` on rows wider than the kernel's 4096 bytes
+    (slabs through the kernel, shifted and XOR-folded) against the plain
+    version at full width, bit for bit; all-zero rows too."""
+    cases = 0
+    for length in (4097, 8192, 65536):
+        x = torch.from_numpy(records(rng, 5, length)).cuda()
+        for rows in (x, torch.zeros_like(x)):
+            before = crc_cuda.raw_crc_cuda.launches
+            got = raw_crc_batch(rows)
+            check(crc_cuda.raw_crc_cuda.launches > before,
+                  f"L={length} did not reach the kernel")
+            check(torch.equal(got, crc_cuda.raw_crc_plain(rows)),
+                  f"wide rows != plain at L={length}")
+            cases += 1
+    return cases
+
+
+# -- recovery: WAL replay and the snapshot hash -----------------------------
+
+
+def append_entries(path: str, payloads, first_index: int,
+                   chain: int) -> tuple[int, int]:
+    """Append entry records of ``payloads`` to the segment at ``path``,
+    their rolling CRC chain continued from ``chain`` with the native
+    CRC (the WAL encoder's format: int64 length, then the Record).
+    Returns the chain's tail and how many entries are wider than the
+    kernel's row."""
+    out = bytearray()
+    wide = 0
+    for i, data in enumerate(payloads):
+        ent = Entry(term=1, index=first_index + i, data=data).marshal()
+        wide += len(ent) > crc_cuda.MAX_LENGTH
+        chain = native.crc32c_update(chain, ent)
+        rec = Record(type=2, crc=chain, data=ent).marshal()
+        out += struct.pack("<q", len(rec)) + rec
+    with open(path, "ab") as f:
+        f.write(out)
+    return chain, wide
+
+
+def write_replay_wal(d: str, n: int, payload: int, segments: int) -> None:
+    """A WAL of ``n`` entries of ``payload`` random bytes in
+    ``segments`` files: each segment's head (crc and metadata records)
+    by the port's WAL, its entries by ``native.wal_gen`` with the chain
+    seeded from the head's last CRC, and a HardState at the end."""
+    w = WAL.create(d, META)
+    per, index = n // segments, 0
+    for s in range(segments):
+        w.close()
+        gen = native.wal_gen(per, payload, start_index=index,
+                             seed=w.encoder.crc.sum32())
+        with open(w._fpath, "ab") as f:
+            f.write(memoryview(gen))
+        tail = int(native.wal_scan(gen)[1][-1])
+        index += per
+        w = WAL.open_at_end(d, META, tail, index - 1)
+        if s < segments - 1:
+            w.cut()
+    w.save_state(HardState(term=1, vote=1, commit=index - 1))
+    w.close()
+
+
+def wal_bytes(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def same_replay(a, b) -> bool:
+    (ma, sa, ba), (mb, sb, bb) = a, b
+    return (ma == mb and sa == sb and ba.last_crc == bb.last_crc
+            and all(np.array_equal(getattr(ba, k), getattr(bb, k))
+                    for k in ("index", "term", "type", "data_off",
+                              "data_len", "blob")))
+
+
+def stream_stage_seconds() -> dict:
+    return {s: registry.histogram("etcd_replay_stream_chunk_seconds",
+                                  stage=s).sum
+            for s in ("scan", "h2d", "verify")}
+
+
+def replay_lanes(d: str, card: str, what: str) -> dict:
+    """Replay ``d`` on every lane: equal results, and the raw-CRC
+    kernel launched on the device lanes.  Returns per-lane (seconds,
+    kernel launches, stream stage seconds) and prints the rates."""
+    size = wal_bytes(d)
+    out, ref = {}, None
+    for lane in LANES:
+        torch.cuda.synchronize()
+        reset_launches()
+        stages0 = stream_stage_seconds()
+        t0 = time.perf_counter()
+        got = read_all_device(d, 0, route=lane)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = crc_cuda.raw_crc_cuda.launches
+        stages = {k: v - stages0[k] for k, v in stream_stage_seconds().items()}
+        ref = ref or got
+        check(same_replay(ref, got), f"{what}: lane {lane} != host lane")
+        if lane != "host":
+            check(launches > 0, f"{what}: lane {lane} did not launch the "
+                  f"raw-CRC kernel")
+        n = len(got[2])
+        out[lane] = {"seconds": secs, "launches": launches,
+                     "entries": n, "bytes": size}
+        extra = ""
+        if lane == "stream":
+            out[lane]["stages"] = stages
+            extra = (f"; stages scan {stages['scan']} s, h2d "
+                     f"{stages['h2d']} s, verify {stages['verify']} s")
+        print(f"replay {what} {lane}: {n} entries, {size} B in {secs} s = "
+              f"{n / secs} entries/s, {size / secs / 1e9} GB/s of WAL, "
+              f"{launches} kernel launches{extra} [{card}]", flush=True)
+    return out
+
+
+def replay_split(d: str, card: str) -> None:
+    """The host-side parts every lane shares or runs: reading the
+    segments, the fused native scan + CRC (the host lane's work) and the
+    frame-only scan (the device lane's)."""
+    names = sorted(f for f in os.listdir(d) if f.endswith(".wal"))
+    t0 = time.perf_counter()
+    blob = np.concatenate([np.fromfile(os.path.join(d, f), np.uint8)
+                           for f in names])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.scan_verify(blob)
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.wal_scan(blob)
+    frame_s = time.perf_counter() - t0
+    print(f"replay split: read segments {read_s} s, fused scan+CRC "
+          f"{fused_s} s, frame-only scan {frame_s} s [{card}]", flush=True)
+
+
+def idle_share(what: str, card: str, fn, reps: int = 3) -> None:
+    wall_ms, busy_ms, top = profile_calls(fn, reps=reps)
+    check(busy_ms > 0, f"the profiler saw no device time in {what}")
+    print(f"profiled {what}: {wall_ms} ms wall, {busy_ms} ms device busy, "
+          f"idle share {1 - busy_ms / wall_ms} [{card}]", flush=True)
+    for ms, name in top[:3]:
+        print(f"  {ms:.4f} ms/call  {name[:90]}")
+
+
+def flip_named_alike(d: str) -> int:
+    """Flip one payload byte in a middle entry record: every lane must
+    raise CRCMismatchError naming that record.  Returns its index."""
+    names = sorted(f for f in os.listdir(d) if f.endswith(".wal"))
+    blob = np.concatenate([np.fromfile(os.path.join(d, f), np.uint8)
+                           for f in names])
+    types, _, doff, dlen, *_ = native.wal_scan(blob)
+    mid = types.size // 2
+    bad = mid + int(np.argmax(types[mid:] == 2))  # an entry record
+    off = int(doff[bad]) + int(dlen[bad]) - 7
+    for name in names:
+        size = os.path.getsize(os.path.join(d, name))
+        if off < size:
+            break
+        off -= size
+    path = os.path.join(d, name)
+
+    def flip():
+        with open(path, "r+b") as f:
+            f.seek(off)
+            byte = f.read(1)[0]
+            f.seek(off)
+            f.write(bytes([byte ^ 0x10]))
+
+    flip()
+    try:
+        for lane in LANES:
+            try:
+                read_all_device(d, 0, route=lane)
+            except CRCMismatchError as e:
+                check(f"at record {bad} " in str(e),
+                      f"lane {lane} named another record: {e}")
+            else:
+                check(False, f"lane {lane} missed the flipped byte")
+    finally:
+        flip()
+    return bad
+
+
+def mixed_wal(d: str, rng) -> int:
+    """~MIXED_N entries of 1 B to 64 KiB payloads (log-uniform) in one
+    segment.  Returns how many are wider than the kernel's row."""
+    sizes = np.exp(rng.uniform(0, np.log(1 << 16), MIXED_N)).astype(int)
+    sizes[:3] = (1, 1 << 16, 50_000)
+    w = WAL.create(d, META)
+    chain = w.encoder.crc.sum32()
+    w.close()
+    payloads = [rng.bytes(int(s)) for s in sizes]
+    tail, wide = append_entries(w._fpath, payloads, 0, chain)
+    w = WAL.open_at_end(d, META, tail, MIXED_N - 1)
+    w.save_state(HardState(term=1, vote=1, commit=MIXED_N - 1))
+    w.close()
+    return wide
+
+
+def kernel_at(rows: torch.Tensor, reps: int = 10) -> dict:
+    """The raw-CRC kernel alone on ``rows``: ms, the plain version's
+    ms, max |kernel - plain| and the bound."""
+    want = crc_cuda.raw_crc_plain(rows)
+    err = int((crc_cuda.raw_crc_cuda(rows) - want).abs().max())
+    n, length = rows.shape
+    b = roofline.crc_bound(n, length)
+    ms = time_ms(lambda: crc_cuda.raw_crc_cuda(rows), reps=reps)
+    return {"ms": ms, "plain_ms": time_ms(
+                lambda: crc_cuda.raw_crc_plain(rows), reps=3),
+            "max_abs_err": err, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "pct_of_bound": 100 * b["bound_ms"] / ms,
+            "shape": [n, length]}
+
+
+def snapshot_hash(rng, card: str) -> dict:
+    """device_crc32c of SNAP_BYTES random bytes against the native CRC,
+    and ChunkVerifier(route="device") over its SNAP_CHUNK chunks with
+    one corrupted.  Returns times, launches and the kernel at
+    [ROW_BATCH, CHUNK]."""
+    data = rng.integers(0, 256, SNAP_BYTES, dtype=np.uint8)
+    t0 = time.perf_counter()
+    want = native.crc32c_update(0, data)
+    host_s = time.perf_counter() - t0
+    crc_kernel.device_crc32c(data[:1 << 20])  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = crc_kernel.device_crc32c(data)
+    dev_s = time.perf_counter() - t0
+    hash_launches = crc_cuda.raw_crc_cuda.launches
+    check(got == want, f"device_crc32c {got:#x} != native {want:#x}")
+    check(hash_launches > 0, "device_crc32c did not launch the kernel")
+    idle_share("snapshot hash", card,
+               lambda: crc_kernel.device_crc32c(data), reps=2)
+    print(f"snapshot hash: {SNAP_BYTES} B, device {dev_s} s = "
+          f"{SNAP_BYTES / dev_s / 1e9} GB/s, native host {host_s} s = "
+          f"{SNAP_BYTES / host_s / 1e9} GB/s, {hash_launches} kernel "
+          f"launches, crc {got:#010x} [{card}]", flush=True)
+
+    chunks = [data[o:o + SNAP_CHUNK].tobytes()
+              for o in range(0, SNAP_BYTES, SNAP_CHUNK)]
+    crcs, prev = [], 0
+    for c in chunks:
+        prev = native.crc32c_update(prev, c)
+        crcs.append(prev)
+    check(crcs[-1] == want, "chunk chain tail != whole-blob CRC")
+    prevs = [0] + crcs[:-1]
+    bad = len(chunks) // 3
+    chunks[bad] = chunks[bad][:99] + bytes([chunks[bad][99] ^ 1]) \
+        + chunks[bad][100:]
+    verifier = ChunkVerifier(route="device")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    verdicts = verifier.verify(chunks, prevs, crcs)
+    ver_s = time.perf_counter() - t0
+    ver_launches = crc_cuda.raw_crc_cuda.launches
+    check(verdicts == [k != bad for k in range(len(chunks))],
+          f"ChunkVerifier flagged {[k for k, v in enumerate(verdicts) if not v]}"
+          f", not [{bad}]")
+    check(ver_launches > 0, "ChunkVerifier did not launch the kernel")
+    print(f"ChunkVerifier(device): {len(chunks)} chunks of {SNAP_CHUNK} B in "
+          f"{ver_s} s = {SNAP_BYTES / ver_s / 1e9} GB/s, flagged chunk "
+          f"[{bad}] only, {ver_launches} kernel launches [{card}]",
+          flush=True)
+    rows = torch.from_numpy(data[:crc_kernel.ROW_BATCH * crc_kernel.CHUNK]
+                            .reshape(crc_kernel.ROW_BATCH, crc_kernel.CHUNK)
+                            ).cuda()
+    return {"hash_s": dev_s, "host_s": host_s, "verify_s": ver_s,
+            "launches": hash_launches + ver_launches,
+            "kernel": kernel_at(rows)}
+
+
+def recovery(rng, card: str) -> tuple[dict, dict]:
+    """Phases (b)-(d): replay at config 1 and mixed widths, the
+    snapshot hash at config 3.  Returns the kernels-line entries'
+    numbers for the replay and snapshot paths."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    try:
+        d = os.path.join(tmp, "wal")
+        t0 = time.perf_counter()
+        write_replay_wal(d, REPLAY_N, PAYLOAD, SEGMENTS)
+        print(f"replay WAL: {REPLAY_N} entries x {PAYLOAD} B payloads, "
+              f"{wal_bytes(d)} B in {len(os.listdir(d))} segments, written "
+              f"in {time.perf_counter() - t0} s [{card}]", flush=True)
+        policy = BackendPolicy()
+        route = policy.route("replay", size_bytes=wal_bytes(d))
+        print(f"router at this size: {route} "
+              f"({policy.decisions['replay']['why']}); probe "
+              f"{json.dumps(policy.probe())} [{card}]", flush=True)
+        replay_lanes(d, card, "warm-up")
+        lanes = replay_lanes(d, card, "1M x 256B")
+        replay_split(d, card)
+        for lane in ("device", "stream"):
+            idle_share(f"replay {lane} lane", card, lambda: read_all_device(
+                d, 0, route=lane), reps=2)
+        bad = flip_named_alike(d)
+        print(f"corruption: all lanes name record {bad}", flush=True)
+
+        dm = os.path.join(tmp, "mixed")
+        wide = mixed_wal(dm, rng)
+        mixed = replay_lanes(dm, card, f"mixed 1B-64KiB ({wide} rows "
+                             f"> 4096 B)")
+        check(wide > 0, "no mixed-width entry wider than 4096 B")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the kernel at the lanes' batch shapes: the device lane's
+    # [131072, 384] and a 4 MiB stream chunk's
+    per_chunk, _ = native.wal_count_range(
+        native.wal_gen(REPLAY_N // 64, PAYLOAD), 0, DEFAULT_CHUNK_BYTES)
+    shapes = {"device": _rows_per_chunk(384, REPLAY_N, 1 << 17, 1 << 28),
+              "stream": _rows_per_chunk(384, per_chunk, 1 << 17, 1 << 28)}
+    timed = {}
+    for lane, n in shapes.items():
+        rows = torch.from_numpy(records(rng, n, 384)).cuda()
+        timed[lane] = kernel_at(rows, reps=20)
+        print(f"raw_crc at the {lane} lane's batch {timed[lane]['shape']}: "
+              f"{timed[lane]['ms']} ms, bound {timed[lane]['bound_ms']} ms "
+              f"({timed[lane]['pct_of_bound']}%), plain "
+              f"{timed[lane]['plain_ms']} ms [{card}]", flush=True)
+    replay = {"lanes": lanes, "mixed": mixed, "kernel": timed,
+              "launches": sum(lanes[x]["launches"] for x in LANES)
+              + sum(mixed[x]["launches"] for x in LANES)}
+
+    snap = snapshot_hash(rng, card)
+    k = snap["kernel"]
+    print(f"raw_crc at the snapshot batch {k['shape']}: {k['ms']} ms, bound "
+          f"{k['bound_ms']} ms ({k['pct_of_bound']}%), plain {k['plain_ms']} "
+          f"ms [{card}]", flush=True)
+    return replay, snap
+
+
 def plain_step(buf, lens, stored, seed, state, *raft):
     """data_plane_step with the plain CRC in place of the kernel."""
     raw = crc_cuda.raw_crc_plain(buf)
@@ -272,6 +647,8 @@ def main() -> int:
           flush=True)
     print(f"parity: planes_crc {planes_parity(rng)} cases bit-exact",
           flush=True)
+    print(f"parity: raw_crc_batch on rows of 4097-65536 B {wide_parity(rng)} "
+          f"cases bit-exact", flush=True)
 
     # 3. the slice at real size
     t0 = time.perf_counter()
@@ -342,7 +719,7 @@ def main() -> int:
           f"{bound_ms} ms ({nbytes} B, {ops} int8 ops) [{card}]")
     print(f"step {step_ms} ms = raw CRC kernel + chain verify {chain_ms} ms "
           f"+ replication round {raft_ms} ms [{card}]")
-    wall_ms, busy_ms, top = profile_step(args)
+    wall_ms, busy_ms, top = profile_calls(lambda: data_plane_step(*args))
     check(busy_ms > 0, "the profiler saw no device time in the step")
     print(f"profiled step: {wall_ms} ms wall, {busy_ms} ms device busy, "
           f"idle share {1 - busy_ms / wall_ms} [{card}]")
@@ -403,6 +780,11 @@ def main() -> int:
                  + sweep_counts["planes_crc_cuda"][1][k] for k in planes_timed}
     for what, count in [*raw_by.items(), *planes_by.items()]:
         check(count > 0, f"no launch of {what} in the race or the sweep")
+    del buf, lens, stored, state, raft, args, out, ref, want, raw
+    torch.cuda.empty_cache()
+
+    # 8. recovery: WAL replay (config 1, mixed widths), snapshot hash
+    replay, snap = recovery(rng, card)
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -440,6 +822,36 @@ def main() -> int:
             "plain_ms": plain_t, "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,
             "design": PLANES_DESIGN[t], "shape": [N, WIDTH], "tile": 1024})
+    # raw_crc on the recovery paths: launches of the replay lanes
+    # (config 1 and mixed widths) and of the snapshot hash and chunk
+    # verifier, timed at each path's batch shape
+    lanes = replay["lanes"]
+    for name, k, count, extra in (
+            ("raw_crc/replay", replay["kernel"]["device"],
+             replay["launches"],
+             {"stream_shape": replay["kernel"]["stream"]["shape"],
+              "stream_ms": replay["kernel"]["stream"]["ms"],
+              "stream_bound_ms": replay["kernel"]["stream"]["bound_ms"],
+              "launches_by_lane": {
+                  x: [lanes[x]["launches"], replay["mixed"][x]["launches"]]
+                  for x in LANES},
+              "entries_per_s": {x: lanes[x]["entries"] / lanes[x]["seconds"]
+                                for x in LANES},
+              "stream_stage_s": lanes["stream"]["stages"]}),
+            ("raw_crc/snapshot", snap["kernel"], snap["launches"],
+             {"hash_gbps": SNAP_BYTES / snap["hash_s"] / 1e9,
+              "host_gbps": SNAP_BYTES / snap["host_s"] / 1e9,
+              "verifier_gbps": SNAP_BYTES / snap["verify_s"] / 1e9})):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+            "replaces": "etcd_tpu/ops/crc_pallas.py:40", "launches": count,
+            "max_abs_err": k["max_abs_err"],
+            "bit_exact": k["max_abs_err"] == 0, "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
+            "library_ms": None, "design": RAW_DESIGN,
+            "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"], **extra})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

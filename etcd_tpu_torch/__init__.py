@@ -7,10 +7,20 @@ ported so far:
     crc/        CRC32-Castagnoli host digest and GF(2) algebra (copies)
     ops/        batched raw CRC (hand-written CUDA kernels + their plain
                 torch versions), its variant formulations, chain
-                verify, quorum commit index
+                verify, quorum commit index, the snapshot hash
+                (``crc_kernel.py``)
     raft/       the [G]-batched Raft engine (``batched.py``)
     parallel/   the fused single-card data-plane step
-    obs/        roofline accounting (``roofline.py``)
+    wal/        the WAL (``wal.py``), its replay lanes on the card
+                (``replay_device.py``) and their router
+                (``backend_policy.py``)
+    snap/       the streamed-snapshot chunk verifier (``stream.py``)
+    wire/       the WAL's protobuf records (copies)
+    utils/      the WAL's fsync helpers, failpoints and ENOSPC error
+    obs/        roofline accounting, a metrics registry, the device
+                ledger
+    native.py   ctypes binding of ``native/walscan.cc`` (built with g++
+                at first use)
     scripts/    the raw-CRC variant race, the kernel sweep, the host
                 WAL builder
     entry.py    example inputs and the entry point of that step

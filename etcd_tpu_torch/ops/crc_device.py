@@ -41,7 +41,7 @@ from .crc_bits import (  # noqa: F401  (re-exported under the JAX names)
     _unpack_bits,
     contribution_matrix,
 )
-from .crc_cuda import raw_crc_cuda, raw_crc_plain
+from .crc_cuda import MAX_LENGTH, raw_crc_cuda, raw_crc_plain
 
 _MASK32 = 0xFFFFFFFF
 
@@ -109,11 +109,50 @@ def raw_crc_batch(buf: torch.Tensor) -> torch.Tensor:
     ``buf`` is ``[N, L]`` uint8 with each record's bytes occupying the
     *rightmost* ``len`` columns and zeros elsewhere.  A CPU tensor takes
     the plain torch version; any other launches the CUDA kernel, which
-    raises where it cannot run.
+    raises where it cannot run.  Rows wider than the kernel's
+    ``MAX_LENGTH`` are folded from slabs of that width
+    (:func:`_raw_crc_wide`), so a CUDA tensor of any width reaches the
+    kernel.
     """
+    if buf.shape[1] > MAX_LENGTH:
+        return _raw_crc_wide(buf)
     if buf.device.type == "cpu":
         return raw_crc_plain(buf)
     return raw_crc_cuda(buf)
+
+
+def _xor_rows(states: torch.Tensor) -> torch.Tensor:
+    """XOR of each row of int64 uint32 values [N, S]: int64 [N], as a
+    per-bit parity sum."""
+    return _from_bits32(_to_bits32(states).sum(dim=1, dtype=torch.int32) & 1)
+
+
+def _raw_crc_wide(buf: torch.Tensor) -> torch.Tensor:
+    """:func:`raw_crc_batch` for rows wider than ``MAX_LENGTH``.
+
+    By linearity over GF(2), ``raw(s_0 ++ ... ++ s_{S-1}) = XOR_j
+    Z^(MAX_LENGTH (S-1-j)) raw(s_j)`` (``Z`` the one-zero-byte
+    operator): the rows are left-padded to a multiple of ``MAX_LENGTH``
+    (free for right-aligned rows: leading zeros leave a zero raw state
+    zero), viewed as ``[N*S, MAX_LENGTH]``
+    slabs whose raw states come from the kernel (or its plain version),
+    each slab's state is shifted past the bytes to its right
+    (:func:`shift_crc_batch`), and each row's slabs are XOR-reduced.
+    The contribution matrix stays ``MAX_LENGTH`` bytes wide."""
+    n, length = buf.shape
+    slabs = -(-length // MAX_LENGTH)
+    width = slabs * MAX_LENGTH
+    if width != length:
+        padded = buf.new_zeros((n, width))
+        padded[:, width - length:] = buf
+        buf = padded
+    raws = raw_crc_batch(buf.contiguous().view(n * slabs, MAX_LENGTH))
+    suffix = torch.arange(slabs - 1, -1, -1, dtype=torch.int64,
+                          device=buf.device) * MAX_LENGTH
+    shifted = shift_crc_batch(
+        raws, suffix.repeat(n),
+        nbits=((slabs - 1) * MAX_LENGTH).bit_length() or 1)
+    return _xor_rows(shifted.view(n, slabs))
 
 
 def shift_crc_batch(states: torch.Tensor, lens: torch.Tensor,

@@ -1,0 +1,241 @@
+"""Hand-rolled protobuf wire codec for the WAL's record types.
+
+The port's own copy of the part of ``etcd_tpu/wire/proto.py`` the WAL
+and its replay lanes use: the varint primitives, ``Entry``,
+``HardState`` and ``Record``, with the same fixed field emission order
+(gogoproto ``nullable=false``: every field is written, even when zero),
+so WAL files written by either package are byte-equal:
+
+- ``Entry``      reference raft/raftpb/raft.proto:16-21
+- ``HardState``  raft.proto:44-48
+- ``Record``     wal/walpb/record.proto:10-14
+
+Unmarshaling is a permissive field-number dispatch (any order, unknown
+fields skipped), matching the generated Unmarshal functions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+_MASK64 = (1 << 64) - 1
+
+#: the largest length-delimited field a parse accepts
+MAX_FIELD_BYTES = 1 << 30
+
+
+class ProtoError(ValueError):
+    pass
+
+
+class CRCMismatchError(ProtoError):
+    """Record CRC mismatch.  Lives at the wire layer like the
+    reference's walpb.ErrCRCMismatch (wal/walpb/record.go:20)."""
+
+
+# ---------------------------------------------------------------------------
+# varint primitives
+# ---------------------------------------------------------------------------
+
+def put_uvarint(buf: bytearray, v: int) -> None:
+    v &= _MASK64
+    while v >= 0x80:
+        buf.append((v & 0x7F) | 0x80)
+        v >>= 7
+    buf.append(v)
+
+
+def _tag(data: bytes, pos: int) -> tuple[int, int, int]:
+    """Read a field tag, rejecting field number 0 as the generated
+    unmarshalers do ("illegal tag 0")."""
+    tag, pos = uvarint(data, pos)
+    fnum, wt = tag >> 3, tag & 7
+    if fnum == 0:
+        raise ProtoError(f"illegal tag 0 (wire type {wt})")
+    return fnum, wt, pos
+
+
+def uvarint(data: bytes, pos: int) -> tuple[int, int]:
+    """Decode a varint at ``pos``; returns (value, new_pos)."""
+    result = 0
+    shift = 0
+    while True:
+        if pos >= len(data):
+            raise ProtoError("truncated varint")
+        b = data[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result & _MASK64, pos
+        shift += 7
+        if shift >= 70:
+            raise ProtoError("varint overflow")
+
+
+def _skip_field(data: bytes, pos: int, wire_type: int) -> int:
+    if wire_type == 0:  # varint
+        _, pos = uvarint(data, pos)
+        return pos
+    elif wire_type == 1:  # fixed64
+        pos += 8
+    elif wire_type == 2:  # length-delimited
+        n, pos = uvarint(data, pos)
+        pos += n
+    elif wire_type == 5:  # fixed32
+        pos += 4
+    else:
+        raise ProtoError(f"unsupported wire type {wire_type}")
+    if pos > len(data):
+        raise ProtoError("truncated field")
+    return pos
+
+
+def _expect_wt(fnum: int, wt: int, want: int) -> None:
+    """Known fields must carry their declared wire type: corrupt
+    framing aborts instead of being skipped."""
+    if wt != want:
+        raise ProtoError(f"field {fnum}: wrong wire type {wt}, want {want}")
+
+
+def _bytes_field(data: bytes, pos: int) -> tuple[bytes, int]:
+    n, pos = uvarint(data, pos)
+    if n > MAX_FIELD_BYTES:
+        raise ProtoError(f"implausible gpb1.len {n} "
+                         f"(cap {MAX_FIELD_BYTES})")
+    if pos + n > len(data):
+        raise ProtoError("truncated bytes field")
+    return bytes(data[pos : pos + n]), pos + n
+
+
+def _tagged_varint(buf: bytearray, tag: int, v: int) -> None:
+    buf.append(tag)
+    put_uvarint(buf, v)
+
+
+def _tagged_bytes(buf: bytearray, tag: int, b: bytes) -> None:
+    buf.append(tag)
+    put_uvarint(buf, len(b))
+    buf.extend(b)
+
+
+ENTRY_NORMAL = 0
+
+
+# ---------------------------------------------------------------------------
+# messages
+# ---------------------------------------------------------------------------
+
+@dataclass(slots=True)
+class Entry:
+    type: int = ENTRY_NORMAL
+    term: int = 0
+    index: int = 0
+    data: bytes = b""
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.type)
+        _tagged_varint(buf, 0x10, self.term)
+        _tagged_varint(buf, 0x18, self.index)
+        _tagged_bytes(buf, 0x22, self.data)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Entry":
+        e = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                e.type, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                e.term, pos = uvarint(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 0)
+                e.index, pos = uvarint(data, pos)
+            elif fnum == 4:
+                _expect_wt(fnum, wt, 2)
+                e.data, pos = _bytes_field(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return e
+
+
+@dataclass(slots=True)
+class HardState:
+    term: int = 0
+    vote: int = 0
+    commit: int = 0
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.term)
+        _tagged_varint(buf, 0x10, self.vote)
+        _tagged_varint(buf, 0x18, self.commit)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "HardState":
+        s = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                s.term, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                s.vote, pos = uvarint(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 0)
+                s.commit, pos = uvarint(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return s
+
+
+def is_empty_hard_state(st: HardState) -> bool:
+    """Reference raft/node.go:69-76."""
+    return st.term == 0 and st.vote == 0 and st.commit == 0
+
+
+@dataclass(slots=True)
+class Record:
+    """WAL record (reference wal/walpb/record.proto:10-14).
+
+    ``data=None`` omits field 3 entirely, mirroring the generated
+    marshaler's nil check (record.pb.go:186).
+    """
+
+    type: int = 0
+    crc: int = 0
+    data: bytes | None = None
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.type)
+        _tagged_varint(buf, 0x10, self.crc)
+        if self.data is not None:
+            _tagged_bytes(buf, 0x1A, self.data)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Record":
+        r = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                r.type, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                r.crc, pos = uvarint(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 2)
+                r.data, pos = _bytes_field(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return r
