@@ -30,7 +30,9 @@ slabs).  Then it drives four paths at full size:
    record when one payload byte is flipped; then ~4,096 entries of 1 B
    to 64 KiB payloads on all three lanes (rows wider than 4 KiB
    through the kernel).  Prints each lane's entries/s and GB/s of WAL,
-   the stream lane's scan/H2D/verify seconds and the router's choice;
+   the stream lane's scan/H2D/verify seconds, and the lane the router
+   picks for a replay with no route named, whose result must equal the
+   host lane's;
 4. the snapshot hash (``etcd_tpu_torch.ops.crc_kernel.device_crc32c``)
    of 1 GiB of random bytes (BASELINE config 3) against
    ``native.crc32c_update``, and ``snap.ChunkVerifier(route="device")``
@@ -76,7 +78,7 @@ from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
 from etcd_tpu_torch.wal import WAL  # noqa: E402
 from etcd_tpu_torch.wal.backend_policy import (  # noqa: E402
-    DEFAULT_CHUNK_BYTES, BackendPolicy)
+    DEFAULT_CHUNK_BYTES, get_policy)
 from etcd_tpu_torch.wal.errors import CRCMismatchError  # noqa: E402
 from etcd_tpu_torch.wal.replay_device import (  # noqa: E402
     _rows_per_chunk, read_all_device)
@@ -121,7 +123,7 @@ def build_all() -> list:
         walscan = ex.submit(native.build)
         libs = [f.result() for f in futures]
         walscan.result()
-    check(native.available(), "the native WAL scanner does not load")
+    native.require()  # raises with the reason the scanner did not load
     return libs
 
 
@@ -376,6 +378,22 @@ def replay_lanes(d: str, card: str, what: str) -> dict:
     return out
 
 
+def routed_replay(d: str, card: str) -> None:
+    """``read_all_device`` with no route: the process router probes on
+    the card and picks a lane, whose result must equal the host lane's."""
+    t0 = time.perf_counter()
+    got = read_all_device(d, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(same_replay(got, read_all_device(d, 0, route="host")),
+          "route=None != host lane")
+    policy = get_policy()
+    decision = policy.decisions["replay"]
+    print(f"replay route=None: router picked {decision['route']} "
+          f"({decision['why']}) in {secs} s, its probe included; probe "
+          f"{json.dumps(policy.probe())} [{card}]", flush=True)
+
+
 def replay_split(d: str, card: str) -> None:
     """The host-side parts every lane shares or runs: reading the
     segments, the fused native scan + CRC (the host lane's work) and the
@@ -545,13 +563,9 @@ def recovery(rng, card: str) -> tuple[dict, dict]:
         print(f"replay WAL: {REPLAY_N} entries x {PAYLOAD} B payloads, "
               f"{wal_bytes(d)} B in {len(os.listdir(d))} segments, written "
               f"in {time.perf_counter() - t0} s [{card}]", flush=True)
-        policy = BackendPolicy()
-        route = policy.route("replay", size_bytes=wal_bytes(d))
-        print(f"router at this size: {route} "
-              f"({policy.decisions['replay']['why']}); probe "
-              f"{json.dumps(policy.probe())} [{card}]", flush=True)
         replay_lanes(d, card, "warm-up")
         lanes = replay_lanes(d, card, "1M x 256B")
+        routed_replay(d, card)
         replay_split(d, card)
         for lane in ("device", "stream"):
             idle_share(f"replay {lane} lane", card, lambda: read_all_device(

@@ -13,8 +13,10 @@ The library is built with ``g++`` from the repository's
 a name keyed by the source's bytes and the flags (as ``ops/crc_cuda.py``
 keys the ``.cu`` files); nothing is written into ``native/``.
 :func:`build` raises with the compiler's report when the build fails;
-:func:`available` is False then, and callers keep their pure-Python
-path (``wal/replay_device.py:_scan_python``).
+:func:`available` is False then, and every binding raises
+:class:`NativeError` carrying that report.  Only ``read_all_device``
+on route ``device`` or with no route scans in pure Python then
+(``wal/replay_device.py:_scan_python``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_error: Exception | None = None  # why the library did not load
 
 
 class NativeError(RuntimeError):
@@ -132,15 +135,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _load():
-    global _lib, _tried
+    global _lib, _tried, _error
     with _lock:
         if _tried:
             return _lib
         _tried = True
         try:
             _lib = _bind(ctypes.CDLL(str(build())))
-        except (NativeError, OSError):
-            _lib = None
+        except (NativeError, OSError) as e:
+            _lib, _error = None, e
         return _lib
 
 
@@ -148,10 +151,13 @@ def available() -> bool:
     return _load() is not None
 
 
-def _lib_or_raise():
+def require():
+    """The loaded library, or :class:`NativeError` with the reason it
+    did not load (the compiler's report for a failed build)."""
     lib = _load()
     if lib is None:
-        raise NativeError("native library unavailable")
+        raise NativeError(f"native library unavailable: {_error}") \
+            from _error
     return lib
 
 
@@ -180,7 +186,7 @@ def crc32c_update(crc: int, data) -> int:
 def wal_scan(blob: np.ndarray):
     """Framing pass: returns (types, crcs, data_off, data_len,
     ent_index, ent_term, ent_type) numpy arrays, one per record."""
-    lib = _lib_or_raise()
+    lib = require()
     # exact-size allocation via a cheap length-hop sweep
     cap = max(1, _check(lib.etcd_wal_count(_u8(blob), blob.size)))
     types, crcs, doff, dlen, eidx, eterm, etype = alloc_scan_arrays(cap)
@@ -205,7 +211,7 @@ def chain_verify(blob: np.ndarray, data_off: np.ndarray,
     *stored* value).  Returns ``stored.size`` when the chain verifies,
     else the index of the first bad record; raises on out-of-range
     spans."""
-    lib = _lib_or_raise()
+    lib = require()
     args = (
         _u8(blob), blob.size, _u64(data_off), _u64(data_len),
         np.ascontiguousarray(stored, np.uint32).ctypes.data_as(
@@ -220,7 +226,7 @@ def wal_count_range(blob: np.ndarray, pos: int = 0,
                     budget: int | None = None) -> tuple[int, int]:
     """Length-hop record count over one chunk: ``(count, next_pos)``
     for the records a ``scan_chunk(pos, budget)`` call would emit."""
-    lib = _lib_or_raise()
+    lib = require()
     if budget is None:
         budget = blob.size
     nxt = ctypes.c_uint64()
@@ -253,7 +259,7 @@ def scan_chunk(blob: np.ndarray, pos: int = 0,
     next_pos)``; a CRC mismatch raises :class:`NativeError` with
     ``code == CRC_MISMATCH`` and ``bad_index`` = the chunk-local index
     of the first bad record."""
-    lib = _lib_or_raise()
+    lib = require()
     if budget is None:
         budget = blob.size
     if out is None:
@@ -301,7 +307,7 @@ def wal_gen(n_entries: int, payload_len: int, start_index: int = 1,
     """A synthetic framed stream of ``n_entries`` entry records with
     ``payload_len`` pseudo-random payload bytes each, indexes from
     ``start_index``, its rolling CRC chain seeded with ``seed``."""
-    lib = _lib_or_raise()
+    lib = require()
     cap = n_entries * (payload_len + 64) + 64
     out = np.empty(cap, np.uint8)
     n = _check(lib.etcd_wal_gen(n_entries, payload_len, start_index,
@@ -315,7 +321,7 @@ def pad_rows(blob: np.ndarray, data_off: np.ndarray, data_len: np.ndarray,
 
     ``out``, when given, is a writeable C-contiguous uint8 [n, width]
     destination, such as a pinned staging buffer of the stream lane."""
-    lib = _lib_or_raise()
+    lib = require()
     n = data_off.size
     if out is None:
         out = np.empty((n, width), np.uint8)

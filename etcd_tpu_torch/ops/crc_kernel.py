@@ -15,7 +15,9 @@ all on ``default_device(device)``; only the final 32-bit fix-up happens
 on the host.
 
 :func:`auto_crc32c` races this against the host CRC once per process on
-the first large blob and keeps the winner.  The host side of that race
+the first large blob and keeps the winner.  A device path that fails,
+in the race or in a hash, raises: the host CRC is chosen only by
+the blob's size or by the race's times.  The host side of that race
 is ``native.crc32c_update`` (one SSE4.2 sweep where the CPU has it),
 not the pure-Python ``crc/crc32c.py``: without ``google_crc32c`` that
 would take seconds for the 8 MiB sample and decide nothing.
@@ -61,7 +63,8 @@ def _rows(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _host_crc32c(data) -> int:
-    """The host CRC the race and the fallbacks use."""
+    """The host CRC: small blobs, and large ones when the race picks
+    the host."""
     return native.crc32c_update(0, data)
 
 
@@ -71,7 +74,9 @@ def device_crc32c(data, chunk: int = CHUNK, device=None) -> int:
     without CUDA).
 
     Bit-identical to the host path for any length, including zero and
-    non-chunk-multiple tails.
+    non-chunk-multiple tails.  The suffix shifts take int64 lengths
+    (``shift_crc_batch`` walks their bits up to the highest set one), so
+    blobs of 4 GiB and more need no second level.
     """
     dev = default_device(device)
     buf = np.frombuffer(memoryview(data), dtype=np.uint8) \
@@ -79,8 +84,6 @@ def device_crc32c(data, chunk: int = CHUNK, device=None) -> int:
     n = int(buf.size)
     if n == 0:
         return 0
-    if n >= 1 << 32:  # suffix shifts are uint32 (4 GiB ceiling)
-        return _host_crc32c(buf)
     k = -(-n // chunk)
     rem = n - (k - 1) * chunk
     # Chunk 0 is the (possibly short) head; right-alignment makes its
@@ -111,16 +114,12 @@ def device_crc32c(data, chunk: int = CHUNK, device=None) -> int:
 # large blob's head.
 _CALIBRATE_BYTES = 8 << 20
 _CALIBRATE_REPS = 3        # best-of-N: one stall must not pin policy
-_MAX_CALIBRATIONS = 3      # re-races allowed after device faults
 _device_wins: bool | None = None
-_calibrations = 0
 _calibrate_lock = threading.Lock()
 
 
 def device_hash_wins() -> bool | None:
-    """The calibrated policy (None = no large blob hashed yet, or the
-    device faulted during calibration and a bounded re-race is still
-    allowed)."""
+    """The calibrated policy (None = no race has finished yet)."""
     return _device_wins
 
 
@@ -135,23 +134,16 @@ def _best_of(fn, sample, reps=_CALIBRATE_REPS) -> float:
     return best
 
 
-def _calibrate(buf: np.ndarray, device) -> bool | None:
-    """Race both paths on the blob's head.  True/False = a fair race
-    verdict; None = the device path FAULTED (no verdict: the caller may
-    re-race on a later blob rather than pinning host forever)."""
+def _calibrate(buf: np.ndarray, device) -> bool:
+    """Race both paths on the blob's head: True when the device path
+    is faster.  A device path that fails raises."""
     sample = np.ascontiguousarray(buf[:_CALIBRATE_BYTES])
 
     def on_device(s):
         return device_crc32c(s, device=device)
 
-    try:
-        on_device(sample)  # build/load/warm outside the timing
-        t_dev = _best_of(on_device, sample)
-    except Exception:  # pragma: no cover - device-env specific
-        log.warning("snapshot-hash calibration: device path faulted; "
-                    "host for now (re-race allowed on a later blob)",
-                    exc_info=True)
-        return None
+    on_device(sample)  # build/load/warm outside the timing
+    t_dev = _best_of(on_device, sample)
     t_host = _best_of(_host_crc32c, sample)
     log.info("snapshot-hash calibration: device %.0f MB/s vs host %.0f "
              "MB/s -> %s", sample.size / t_dev / 1e6,
@@ -166,53 +158,22 @@ def auto_crc32c(data, device=None) -> int:
     one-time race on this process's card and link won.
 
     The device is ``default_device(device)``: without CUDA a large blob
-    raises unless the caller passes ``device="cpu"``.  Device faults
-    during a race or a hash degrade to the host path rather than
-    escaping, since a transient fault must not look like snapshot
-    corruption.
+    raises unless the caller passes ``device="cpu"``.  A device path
+    that fails, in the race or in the hash, raises; the race is run
+    again on the next large blob when it did not finish.  Concurrent
+    callers wait for the one race.
     """
-    global _device_wins, _calibrations
+    global _device_wins
     n = data.size if isinstance(data, np.ndarray) else len(data)
     if n < DEVICE_MIN_BYTES:
         return _host_crc32c(data)
     device = default_device(device)
     if _device_wins is None:
-        # non-blocking: exactly one thread runs the race; concurrent
-        # hashers take the host path meanwhile
-        if not _calibrate_lock.acquire(blocking=False):
-            return _host_crc32c(data)
-        faulted = False
-        try:
+        with _calibrate_lock:
             if _device_wins is None:       # double-checked: one racer
                 buf = np.frombuffer(memoryview(data), dtype=np.uint8) \
                     if not isinstance(data, np.ndarray) else data
-                _calibrations += 1
-                verdict = _calibrate(buf, device)
-                if verdict is None:
-                    # device fault, not a fair race: host for this blob,
-                    # and stay uncalibrated (bounded) so a recovered
-                    # device gets re-raced
-                    if _calibrations >= _MAX_CALIBRATIONS:
-                        _device_wins = False
-                    faulted = True
-                else:
-                    _device_wins = verdict
-        finally:
-            _calibrate_lock.release()
-        if faulted:
-            return _host_crc32c(data)
+                _device_wins = _calibrate(buf, device)
     if not _device_wins:
         return _host_crc32c(data)
-    try:
-        return device_crc32c(data, device=device)
-    except Exception:  # pragma: no cover - device-env specific
-        log.warning("device crc failed; host fallback", exc_info=True)
-        # a faulted device may recover: un-pin so a later large blob
-        # re-races, capped so a dead device doesn't pay a race per blob
-        if _calibrate_lock.acquire(blocking=False):
-            try:
-                _device_wins = None \
-                    if _calibrations < _MAX_CALIBRATIONS else False
-            finally:
-                _calibrate_lock.release()
-        return _host_crc32c(data)
+    return device_crc32c(data, device=device)

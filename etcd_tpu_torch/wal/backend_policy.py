@@ -10,14 +10,18 @@ asks this router:
   shipping and the raw-CRC verify on ``default_device(device)``, timed
   with CUDA events on the card.  Cached in-process and, when
   ``cache_path`` is given, on disk so restarts reuse it.  A device
-  probe that raises (no CUDA, a broken card) routes to the host.
+  probe that raises (no CUDA, a kernel that does not build or launch)
+  raises out of :meth:`BackendPolicy.route`: the router never hides a
+  broken card behind the host lane.
 - **route**: ``host`` (fused single-pass native scan), ``device``
   (monolithic batched device verify), or ``stream`` (the chunked
   double-buffered overlap pipeline, wal/replay_device.py).  The
   device lanes are chosen ONLY when the probed pipeline floor —
   min(host_scan, h2d, device_verify), what the overlap pipeline can
   sustain — beats the probed host throughput, so a present-but-slow
-  accelerator can never regress replay below the host path.
+  accelerator can never regress replay below the host path.  The
+  router itself answers ``host`` or ``stream``; ``device`` is reached
+  only by naming it.
 - **override**: ``ETCD_REPLAY_BACKEND=host|device|stream`` wins over
   the probe unconditionally (operator escape hatch; read per
   decision, so tests and long-lived processes can flip it).
@@ -31,7 +35,6 @@ without probing.
 
 from __future__ import annotations
 
-import functools
 import json
 import logging
 import os
@@ -45,16 +48,10 @@ from ..obs import metrics as _obs
 
 log = logging.getLogger(__name__)
 
-#: the operator override (host | device | stream; aliases accepted)
+#: the operator override: host | device | stream
 ENV_KNOB = "ETCD_REPLAY_BACKEND"
 
 ROUTES = ("host", "device", "stream")
-
-_ALIASES = {
-    "native-host": "host", "native_host": "host", "cpu": "host",
-    "streaming-device": "stream", "streaming": "stream",
-    "tpu": "device",
-}
 
 #: default streaming chunk size: the reference's chunk sweep
 #: (``scripts/replay_bench.py``) found host-path throughput flat from
@@ -71,7 +68,7 @@ DEVICE_MIN_BYTES = 8 << 20
 #: on-disk probe cache lifetime — a stale measurement pinning the
 #: route would recreate the static-choice failure mode this module
 #: exists to kill
-DEFAULT_CACHE_TTL_S = 24 * 3600
+CACHE_TTL_S = 24 * 3600
 
 # probe shapes: small enough to be a startup blip (~1 MiB host blob,
 # one [2048, 384] device batch), large enough to amortize call setup
@@ -113,8 +110,7 @@ def _probe_device_default(device=None) -> dict:
     ``[2048, 384]`` batch on ``default_device(device)``: on CUDA a copy
     from pinned memory and one kernel launch, each timed with CUDA
     events after a warm-up; on the CPU (only when asked for) by the
-    host clock.  Raises without CUDA unless ``device="cpu"``; the
-    caller maps that to the host route."""
+    host clock.  Raises without CUDA unless ``device="cpu"``."""
     from ..ops.crc_device import raw_crc_batch
 
     dev = default_device(device)
@@ -146,25 +142,23 @@ class BackendPolicy:
     """One process's replay-routing state: probe results + decisions.
 
     ``probe_host`` / ``probe_device`` are injectable for tests (a
-    simulated slow or broken device must provably select the host
-    route without hardware in the loop); the default device probe runs
-    on ``device`` (CUDA unless ``device="cpu"``).
+    simulated slow device must provably select the host route without
+    hardware in the loop; an injected ``probe_device`` takes no
+    arguments and may answer None for "no accelerator").  The default
+    device probe runs once a process, on the ``device`` of the first
+    routed call that needs it (CUDA unless ``device="cpu"``).
     """
 
     def __init__(self, cache_path: str | None = None,
                  probe_host=None, probe_device=None,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
-                 device_min_bytes: int = DEVICE_MIN_BYTES,
-                 cache_ttl_s: float = DEFAULT_CACHE_TTL_S,
-                 device=None):
+                 device_min_bytes: int = DEVICE_MIN_BYTES):
         self._lock = threading.Lock()
         self.cache_path = cache_path
         self.chunk_bytes = int(chunk_bytes)
         self.device_min_bytes = int(device_min_bytes)
-        self.cache_ttl_s = float(cache_ttl_s)
         self._probe_host_fn = probe_host or _probe_host_default
-        self._probe_device_fn = probe_device or functools.partial(
-            _probe_device_default, device)
+        self._probe_device_fn = probe_device
         self._probe: dict | None = None
         self.decisions: dict[str, dict] = {}
         _obs.registry.gauge("etcd_replay_stream_chunk_bytes").set(
@@ -172,15 +166,17 @@ class BackendPolicy:
 
     # -- probe ------------------------------------------------------------
 
-    def probe(self) -> dict:
-        """Measure (or recall) the per-leg throughputs.  One probe per
-        process; ``cache_path`` extends the reuse across restarts."""
+    def probe(self, device=None) -> dict:
+        """Measure (or recall) the per-leg throughputs, the device legs
+        on ``device``.  One probe per process; ``cache_path`` extends
+        the reuse across restarts.  Raises what either probe raises;
+        nothing is cached then."""
         with self._lock:
             if self._probe is not None:
                 return self._probe
             p = self._load_cache()
             if p is None:
-                p = self._measure()
+                p = self._measure(device)
                 self._save_cache(p)
             else:
                 p["source"] = "cache"
@@ -191,17 +187,12 @@ class BackendPolicy:
                 p.get(f"{leg}_bps") or 0.0)
         return p
 
-    def _measure(self) -> dict:
+    def _measure(self, device) -> dict:
         p: dict = {"source": "probe",
                    "ts": time.strftime("%Y-%m-%dT%H:%M:%SZ",
                                        time.gmtime()),
                    "ts_epoch": time.time()}
-        try:
-            ph = self._probe_host_fn()
-        except Exception as e:  # no native tier: the device lanes
-            log.warning("backend_policy: host probe failed: %r", e)
-            ph = None  # may still carry the replay
-            p["host_error"] = repr(e)[:200]
+        ph = self._probe_host_fn()
         if isinstance(ph, dict):
             p["host_scan_bps"] = ph.get("host_scan_bps")
             p["host_frame_bps"] = ph.get("host_frame_bps",
@@ -209,14 +200,8 @@ class BackendPolicy:
         else:  # injected scalar probes: one number for both legs
             p["host_scan_bps"] = ph
             p["host_frame_bps"] = ph
-        try:
-            dev = self._probe_device_fn()
-        except Exception as e:
-            # a broken/unreachable accelerator must degrade to the
-            # host path, never crash a restart
-            log.warning("backend_policy: device probe failed: %r", e)
-            dev = None
-            p["device_error"] = repr(e)[:200]
+        dev = self._probe_device_fn() if self._probe_device_fn \
+            else _probe_device_default(device)
         p["h2d_bps"] = (dev or {}).get("h2d_bps")
         p["device_verify_bps"] = (dev or {}).get("device_verify_bps")
         return p
@@ -231,7 +216,7 @@ class BackendPolicy:
                 return None
             p = dict(doc["probe"])
             age = time.time() - float(p.get("ts_epoch", 0))
-            if not 0 <= age <= self.cache_ttl_s:
+            if not 0 <= age <= CACHE_TTL_S:
                 log.info("backend_policy: probe cache is %.0fh old; "
                          "re-probing", age / 3600)
                 return None
@@ -241,10 +226,6 @@ class BackendPolicy:
 
     def _save_cache(self, p: dict) -> None:
         if not self.cache_path:
-            return
-        if "device_error" in p or "host_error" in p:
-            # a probe taken during an outage must not pin the route
-            # for every later restart — errors stay process-local
             return
         try:
             tmp = self.cache_path + ".tmp"
@@ -257,17 +238,15 @@ class BackendPolicy:
     # -- routing ----------------------------------------------------------
 
     def route(self, stage: str, size_bytes: int | None = None,
-              strict_device: bool = False) -> str:
+              device=None) -> str:
         """Pick host | device | stream for one replay-shaped stage.
 
-        Precedence: env override > (strict_device: the operator's
-        promise of a device backend) > size gate > probe comparison
-        > host.  The decision is recorded per ``stage`` in the
-        registry and in :attr:`decisions`.
+        Precedence: env override > size gate > probe comparison (the
+        device legs probed on ``device``).  The decision is recorded
+        per ``stage`` in the registry and in :attr:`decisions`.
         """
         route, why = self._env_route()
-        if route is None and not strict_device \
-                and size_bytes is not None \
+        if route is None and size_bytes is not None \
                 and size_bytes < self.device_min_bytes:
             # tiny streams: the device lanes can't amortize their
             # start-up, and the device probe would initialize the card
@@ -276,14 +255,9 @@ class BackendPolicy:
                 f"size {int(size_bytes)} B < device threshold "
                 f"{self.device_min_bytes} B")
         if route is None:
-            probe = self.probe()
-            if strict_device:
-                route, why = "stream", "strict_device"
-            elif probe.get("device_verify_bps") is None:
-                route, why = "host", (
-                    "no usable accelerator"
-                    if "device_error" not in probe
-                    else f"device probe failed: {probe['device_error']}")
+            probe = self.probe(device)
+            if probe.get("device_verify_bps") is None:
+                route, why = "host", "no usable accelerator"
             else:
                 # host route sustains the FUSED pass; the pipeline
                 # sustains min over its legs — frame-only host scan
@@ -305,12 +279,9 @@ class BackendPolicy:
 
     def note(self, stage: str, route: str, why: str,
              size_bytes: int | None = None) -> str:
-        """Record — or CORRECT — a stage's decision (registry gauges
-        + :attr:`decisions`).  Callers that end up on a different
-        lane than the one routed (a failed fast lane falling back to
-        the repair path) must call this so the
-        recorded route is always the lane that actually ran — the
-        whole point of the decision artifact is attribution."""
+        """Record (or overwrite) a stage's decision: the registry's
+        route gauges and :attr:`decisions`, so a regression can be
+        attributed to the lane that ran."""
         decision = {"route": route, "why": why, "stage": stage}
         if size_bytes is not None:
             decision["size_bytes"] = int(size_bytes)
@@ -329,12 +300,11 @@ class BackendPolicy:
         raw = os.environ.get(ENV_KNOB, "").strip().lower()
         if not raw:
             return None, None
-        route = _ALIASES.get(raw, raw)
-        if route not in ROUTES:
+        if raw not in ROUTES:
             log.warning("backend_policy: ignoring %s=%r (want one of "
                         "%s)", ENV_KNOB, raw, "/".join(ROUTES))
             return None, None
-        return route, f"env {ENV_KNOB}={raw}"
+        return raw, f"env {ENV_KNOB}={raw}"
 
     def snapshot(self) -> dict:
         """Probe numbers + per-stage decisions, JSON-ready."""

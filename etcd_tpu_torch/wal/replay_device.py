@@ -403,11 +403,10 @@ def stream_scan_verify(blob: np.ndarray, *, seed: int = 0,
     the device legs (default: a :class:`DeviceTransport` on
     ``device``).
     """
-    if not native.available():
-        raise native.NativeError("native library unavailable")
     if route not in ("host", "stream"):
         raise ValueError(f"stream_scan_verify runs route host or stream, "
                          f"not {route!r}")
+    native.require()
     n = int(blob.size)
     if chunk_bytes is None:
         chunk_bytes = get_policy().chunk_bytes
@@ -652,25 +651,37 @@ def read_all_device(dirpath: str, index: int = 0,
     with the scan/verify lane chosen by ``route``: ``host`` (one fused
     native sweep), ``device`` (monolithic batched verify), ``stream``
     (the chunked overlap pipeline), or, when None, the measured router
-    (``wal/backend_policy``).  The device lanes run on
-    ``default_device(device)``.  Without the native library the scan is
-    pure Python and the chain is verified by the batched pass.  Returns
-    entries as an :class:`EntryBlock`; the WAL itself is not opened for
-    append (:func:`open_replay_device` does that).
+    (``wal/backend_policy``; its probe runs on ``device`` and raises
+    where that device does).  The device lanes run on
+    ``default_device(device)``.
+
+    The router answers ``host`` or ``stream``, never ``device``.  At
+    BASELINE config 1 on an H100 it picks ``stream`` although ``host``
+    measured faster there (PERF.md, "Where the time goes"): its cost
+    model leaves out the stream lane's padding and seed injection.
+
+    ``host`` and ``stream`` need the native scanner and raise
+    :class:`native.NativeError` with its build report when it did not
+    load.  Without it, ``device`` and the unrouted call scan in pure
+    Python and verify the chain with the batched pass.  Returns entries
+    as an :class:`EntryBlock`; the WAL itself is not opened for append
+    (:func:`open_replay_device` does that).
     """
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown replay route {route!r} "
+                         f"(want one of {ROUTES})")
     names = select_segments(dirpath, index)
     blobs = [np.fromfile(os.path.join(dirpath, nm), dtype=np.uint8)
              for nm in names]
     blob = np.concatenate(blobs) if len(blobs) > 1 else blobs[0]
 
     verified = False
+    if route in ("host", "stream"):
+        native.require()
     if native.available():
         if route is None:
-            route = get_policy().route("replay",
-                                       size_bytes=int(blob.size))
-        if route not in ROUTES:
-            raise ValueError(f"unknown replay route {route!r} "
-                             f"(want one of {ROUTES})")
+            route = get_policy().route("replay", size_bytes=int(blob.size),
+                                       device=device)
         if route != "host":
             device = default_device(device)
         try:

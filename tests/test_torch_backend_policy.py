@@ -1,8 +1,9 @@
 """The port's replay router (etcd_tpu_torch.wal.backend_policy) against
 the JAX package's on the same injected probes: the same route and the
 same reason for every case of the reference's tests, the same probe
-caching, and a default device probe that runs on the device it was
-built for (CUDA unless ``device="cpu"``) or reports why it could not."""
+caching, and a default device probe that runs on the caller's device
+(CUDA unless ``device="cpu"``).  Where the reference routes a failed
+device probe to the host, the port raises the probe's error."""
 
 import json
 import os
@@ -17,6 +18,7 @@ from etcd_tpu_torch.obs.metrics import registry
 from etcd_tpu_torch.wal import backend_policy
 from etcd_tpu_torch.wal.backend_policy import (
     ENV_KNOB,
+    ROUTES,
     BackendPolicy,
     get_policy,
     set_policy,
@@ -52,15 +54,16 @@ CASES = {
     "slow_device": (lambda: 1e9, _slow_device, {}),
     "broken_probe": (lambda: 1e9, _broken, {}),
     "no_accelerator": (lambda: 1e9, lambda: None, {}),
-    "strict_device": (lambda: 1e9, _slow_device, {"strict_device": True}),
     "small_stream": (_split_host, _fast_device, {"size_bytes": 1 << 20}),
     "large_stream": (_split_host, _fast_device, {"size_bytes": 1 << 30}),
+    "large_stream_slow_device": (lambda: 1e9, _slow_device,
+                                 {"size_bytes": 1 << 30}),
     "slow_host_frame": ({"host_scan_bps": 3e9, "host_frame_bps": 2e9}
                         .copy, _fast_device, {}),
 }
 
 
-@pytest.mark.parametrize("env", [None, "stream", "host", "streaming-device",
+@pytest.mark.parametrize("env", [None, "stream", "host", "device",
                                  "warp-drive"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_route_matches_reference(monkeypatch, case, env):
@@ -69,10 +72,20 @@ def test_route_matches_reference(monkeypatch, case, env):
     host, dev, kw = CASES[case]
     mine = BackendPolicy(probe_host=host, probe_device=dev)
     ref = jpolicy.BackendPolicy(probe_host=host, probe_device=dev)
+    if dev is _broken:
+        # the reference routes to the host; the port raises wherever
+        # the decision needs the probe
+        assert ref.route("replay", **kw) == "host" or env in ROUTES
+        if env in ROUTES:
+            assert mine.route("replay", **kw) == env
+        with pytest.raises(RuntimeError, match="device unreachable"):
+            mine.route("replay", **kw)
+            mine.probe()
+        return
     assert mine.route("replay", **kw) == ref.route("replay", **kw)
     assert mine.decisions == ref.decisions
     for key in ("host_scan_bps", "host_frame_bps", "h2d_bps",
-                "device_verify_bps", "device_error"):
+                "device_verify_bps"):
         assert mine.probe().get(key) == ref.probe().get(key), key
 
 
@@ -83,9 +96,14 @@ def test_slow_device_selects_host():
 
 
 def test_probe_failure_falls_back_to_host():
+    """It does not: a device probe that fails raises out of the router,
+    every time it is asked, and the host route is never chosen for it."""
     p = BackendPolicy(probe_host=lambda: 1e9, probe_device=_broken)
-    assert p.route("replay") == "host"
-    assert "device unreachable" in p.probe()["device_error"]
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="device unreachable"):
+            p.route("replay")
+    assert p.decisions == {}
+    assert p.route("replay", size_bytes=1 << 20) == "host"
 
 
 def test_probe_runs_once_in_process():
@@ -138,10 +156,12 @@ def test_corrupt_and_stale_caches_reprobe(tmp_path):
 
 def test_errored_probe_never_persisted(tmp_path):
     cache = str(tmp_path / "p.json")
-    p = BackendPolicy(cache_path=cache, probe_host=lambda: 1e9,
-                      probe_device=_broken)
-    assert p.route("replay") == "host"
-    assert not os.path.exists(cache)
+    for host, dev in ((lambda: 1e9, _broken), (_broken, _fast_device)):
+        p = BackendPolicy(cache_path=cache, probe_host=host,
+                          probe_device=dev)
+        with pytest.raises(RuntimeError, match="device unreachable"):
+            p.route("replay")
+        assert not os.path.exists(cache)
 
 
 def test_decisions_in_the_registry_and_snapshot():
@@ -182,21 +202,21 @@ def test_get_policy_is_a_singleton():
 
 def test_default_device_probe_needs_cuda_unless_asked_for_the_cpu():
     p = BackendPolicy()
-    route = p.route("replay", size_bytes=1 << 30)
-    probe = p.probe()
-    assert probe["host_scan_bps"] > 0 and probe["host_frame_bps"] > 0
     if torch.cuda.is_available():
-        assert probe["device_verify_bps"] > 0
+        assert p.route("replay", size_bytes=1 << 30) in ("host", "stream")
+        assert p.probe()["device_verify_bps"] > 0
         return
-    assert route == "host" and probe["device_verify_bps"] is None
-    assert "CUDA is not available" in probe["device_error"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        p.route("replay", size_bytes=1 << 30)
+    assert p.decisions == {} and p.snapshot().get("probe") is None
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         backend_policy._probe_device_default()
 
 
 def test_cpu_device_probe_measures_the_plain_version():
-    p = BackendPolicy(device="cpu")
+    p = BackendPolicy()
+    assert p.route("replay", size_bytes=1 << 30, device="cpu") in (
+        "host", "stream")
     probe = p.probe()
+    assert probe["host_scan_bps"] > 0 and probe["host_frame_bps"] > 0
     assert probe["device_verify_bps"] > 0
-    assert "device_error" not in probe
-    assert p.route("replay", size_bytes=1 << 30) in ("host", "stream")

@@ -589,3 +589,26 @@ def test_wide_rows_match_the_jax_raw_crc(length):
     got = u32_numpy(raw_crc_batch(torch.from_numpy(buf)))
     np.testing.assert_array_equal(got, want)
     assert replay_device.raw_crc_batch is raw_crc_batch
+
+
+@pytest.mark.parametrize("route", ["host", "stream"])
+def test_named_host_lanes_need_the_native_scanner(tmp_path, monkeypatch,
+                                                  route):
+    """A failed build of the native scanner is an error naming the
+    build's report on the lanes that run it, never a quiet switch to
+    the pure-Python scan; an unknown route is refused before either."""
+    d = tmp_path / "wal"
+    _write_wal(d, n_entries=4, cuts=())
+    report = native.NativeError("g++ failed (1) building walscan.cc: boom")
+    monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setattr(native, "_error", report)
+    assert not native.available()
+    with pytest.raises(native.NativeError, match="walscan.cc: boom"):
+        read_all_device(str(d), 0, route=route, device="cpu")
+    blob = np.fromfile(d / sorted(os.listdir(d))[0], dtype=np.uint8)
+    with pytest.raises(native.NativeError, match="walscan.cc: boom"):
+        stream_scan_verify(blob, route=route, device="cpu")
+    with pytest.raises(ValueError, match="unknown replay route"):
+        read_all_device(str(d), 0, route="tpu", device="cpu")
+    _assert_same(read_all_device(str(d), 0, route="device", device="cpu"),
+                 _ref_read(d))

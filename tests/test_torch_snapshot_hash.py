@@ -7,12 +7,14 @@ import pytest
 import torch
 
 from etcd_tpu.crc import crc32c as jcrc32c
+from etcd_tpu.crc import gf2 as jgf2
 from etcd_tpu.ops import crc_kernel as jcrc_kernel
 from etcd_tpu.snap.stream import ChunkVerifier as JChunkVerifier
 from etcd_tpu.snap.stream import chunk_crcs
 
 from etcd_tpu_torch import native
 from etcd_tpu_torch.ops import crc_cuda, crc_kernel
+from etcd_tpu_torch.ops.crc_device import shift_crc_batch
 from etcd_tpu_torch.ops.crc_kernel import auto_crc32c, device_crc32c
 from etcd_tpu_torch.snap import ChunkVerifier
 
@@ -22,7 +24,6 @@ def _fresh_policy(monkeypatch):
     """auto_crc32c's race verdict is module state: every test starts
     uncalibrated."""
     monkeypatch.setattr(crc_kernel, "_device_wins", None)
-    monkeypatch.setattr(crc_kernel, "_calibrations", 0)
 
 
 def _data(n, seed=None):
@@ -100,8 +101,8 @@ def test_auto_calibrates_once_and_stays_correct(monkeypatch):
 
 def test_race_times_the_native_host_crc(monkeypatch):
     """The race's host side is one native CRC call on the sample, and
-    a device fault during the race is no verdict (host, re-race
-    allowed, at most _MAX_CALIBRATIONS times)."""
+    a device path that fails raises, in the race (no verdict: the next
+    large blob races again) and in a hash after a device verdict."""
     monkeypatch.setattr(crc_kernel, "DEVICE_MIN_BYTES", 1 << 14)
     monkeypatch.setattr(crc_kernel, "_CALIBRATE_BYTES", 1 << 14)
     host_calls = []
@@ -118,9 +119,33 @@ def test_race_times_the_native_host_crc(monkeypatch):
 
     monkeypatch.setattr(crc_kernel, "_device_wins", None)
     monkeypatch.setattr(crc_kernel, "device_crc32c", faulty)
-    for i in range(crc_kernel._MAX_CALIBRATIONS + 1):
-        assert auto_crc32c(blob, device="cpu") == jcrc32c.value(blob)
-    assert crc_kernel.device_hash_wins() is False
+    host_calls.clear()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="device lost"):
+            auto_crc32c(blob, device="cpu")
+        assert crc_kernel.device_hash_wins() is None
+    monkeypatch.setattr(crc_kernel, "_device_wins", True)
+    with pytest.raises(RuntimeError, match="device lost"):
+        auto_crc32c(blob, device="cpu")
+    assert host_calls == []
+
+
+@pytest.mark.parametrize("nbits", [33, 40, 63])
+def test_suffix_shifts_past_4_gib(nbits):
+    """``device_crc32c`` shifts each chunk by an int64 suffix length, so
+    a blob of 4 GiB or more folds in one level: the shifts hold against
+    the JAX package's ``gf2.shift`` at lengths with bits above 2^32."""
+    rng = np.random.default_rng(nbits)
+    states = rng.integers(0, 1 << 32, size=6, dtype=np.uint64)
+    lens = rng.integers(1 << (nbits - 1), 1 << nbits, size=6,
+                        dtype=np.uint64)
+    lens[0] = 1 << 32
+    lens[1] = 5 << 30
+    got = shift_crc_batch(torch.from_numpy(states.astype(np.int64)),
+                          torch.from_numpy(lens.astype(np.int64)),
+                          nbits=nbits)
+    want = [jgf2.shift(int(s), int(n)) for s, n in zip(states, lens)]
+    assert got.tolist() == want
 
 
 def _chunks(n=4000, cb=512, seed=7):
