@@ -36,7 +36,18 @@ slabs).  Then it drives four paths at full size:
 4. the snapshot hash (``etcd_tpu_torch.ops.crc_kernel.device_crc32c``)
    of 1 GiB of random bytes (BASELINE config 3) against
    ``native.crc32c_update``, and ``snap.ChunkVerifier(route="device")``
-   over its 4 MiB chunks with one chunk corrupted.
+   over its 4 MiB chunks with one chunk corrupted;
+5. the co-hosted serving path (``etcd_tpu_torch.scripts.cohosted_bench``,
+   whose docstring has the shapes): the ``MultiRaft`` engine at 100,000
+   groups x 5 members (BASELINE config 4), held equal field for field to
+   the same calls on the CPU; ``MultiGroupServer`` at 10,000 x 5 serving
+   PUTs from 8 client threads, reads, a CAS, a DELETE and a watch; a
+   restart data dir (GroupEntry records over 10,000 groups, >= 8 MiB of
+   WAL, a snapshot store of >= 4 MiB) restarted under
+   ``--storage-backend`` host, tpu and auto, which must agree, tpu
+   launching the raw-CRC kernel; and ``python -m etcd_tpu_torch.cli
+   --cohosted-groups 10000`` as a subprocess, served over HTTP, killed
+   and restarted with ``--storage-backend tpu``.
 
 Each path is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Prints, on its last lines: one JSON
@@ -73,7 +84,7 @@ from etcd_tpu_torch.ops.crc_device import (  # noqa: E402
 from etcd_tpu_torch.parallel import data_plane_step  # noqa: E402
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
-    crc_variants_bench, kernel_sweep, mma_rate)
+    cohosted_bench, crc_variants_bench, kernel_sweep, mma_rate)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
 from etcd_tpu_torch.wal import WAL  # noqa: E402
@@ -97,6 +108,10 @@ LANES = ("host", "device", "stream")
 META = b"chip_smoke"
 # snapshot hash, BASELINE config 3: 1 GiB, streamed in 4 MiB chunks
 SNAP_BYTES, SNAP_CHUNK = 1 << 30, 4 << 20
+# the co-hosted server at config 4's width; its restart dir
+SERVE_G, SERVE_PUTS, SERVE_THREADS = 10_000, 2000, 8
+RESTART_K_PER, RESTART_SNAP_KEYS = 20, 24_000
+BACKENDS = ("host", "tpu", "auto")
 
 # The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
@@ -159,31 +174,6 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 # -- phases ------------------------------------------------------------------
-
-
-def profile_calls(fn, reps: int = 5):
-    """Device busy time per call of ``fn`` and the kernels that take it,
-    from torch.profiler over ``reps`` calls: (wall ms, busy ms,
-    [(ms, name)]) per call.  The profiler's own host cost is in the wall
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
-    busy_ms = sum(by_name.values()) / 1e3 / reps
-    top = sorted(((us / 1e3 / reps, name) for name, us in by_name.items()),
-                 reverse=True)[:6]
-    return wall * 1e3 / reps, busy_ms, top
 
 
 def records(rng, n: int, length: int) -> np.ndarray:
@@ -414,7 +404,8 @@ def replay_split(d: str, card: str) -> None:
 
 
 def idle_share(what: str, card: str, fn, reps: int = 3) -> None:
-    wall_ms, busy_ms, top = profile_calls(fn, reps=reps)
+    p = cohosted_bench.profile_calls(fn, reps, torch.device("cuda"))
+    wall_ms, busy_ms, top = p["wall_ms"], p["busy_ms"], p["top"]
     check(busy_ms > 0, f"the profiler saw no device time in {what}")
     print(f"profiled {what}: {wall_ms} ms wall, {busy_ms} ms device busy, "
           f"idle share {1 - busy_ms / wall_ms} [{card}]", flush=True)
@@ -607,6 +598,132 @@ def recovery(rng, card: str) -> tuple[dict, dict]:
     return replay, snap
 
 
+def cohosted(rng, card: str) -> dict:
+    """Phases 9-12: the co-hosted engine, the server in process, its
+    restart through the kernel, and the CLI.  Returns the raw-CRC
+    numbers of the restart path for the kernels line."""
+    # 9. the engine at config 4, and the same calls on the CPU
+    eng = cohosted_bench.engine(g=G, m=M, cap=CAP)
+    pr = eng["profile"]
+    check(pr["busy_ms"] > 0, "the profiler saw no device time in a round")
+    print(f"engine {G} x {M} cap {CAP}: per-dispatch p50 {eng['p50_ms']} ms "
+          f"max {eng['max_ms']} ms; propose_rounds x22 {eng['round_ms']} "
+          f"ms/round = {eng['group_commits_per_s']} group-commits/s; "
+          f"profiled dispatch {pr['wall_ms']} ms wall, {pr['busy_ms']} ms "
+          f"busy, idle share {pr['idle_share']}, "
+          f"{pr['launches_per_call']} kernel launches and "
+          f"{pr['copies_per_call']} copies per round [{card}]", flush=True)
+    for ms, name in pr["top"][:3]:
+        print(f"  {ms:.4f} ms/round  {name[:90]}")
+    t0 = time.perf_counter()
+    ref = cohosted_bench.engine(g=G, m=M, cap=CAP, device="cpu")
+    bad = cohosted_bench.same_states(eng, ref)
+    check(not bad, f"engine on the card != on the CPU in {bad[:8]}")
+    print(f"engine: every field of every member slot equals the CPU run's "
+          f"({time.perf_counter() - t0} s on the CPU)", flush=True)
+    del eng, ref
+
+    # 10. the server in process at config 4's width
+    sv = cohosted_bench.serving(g=SERVE_G, m=M, cap=1024, puts=SERVE_PUTS,
+                                threads=SERVE_THREADS)
+    pr = sv["profile"]
+    print(f"serving {SERVE_G} x {M} cap 1024 ({sv['state_bytes']} B of "
+          f"engine state): start {sv['start_s']} s; {SERVE_PUTS} PUTs from "
+          f"{SERVE_THREADS} threads in {sv['load_s']} s = "
+          f"{sv['acked_writes_per_s']} acked writes/s, p50 {sv['p50_ms']} "
+          f"ms, p99 {sv['p99_ms']} ms, {sv['rounds']} persisted rounds; "
+          f"every key read back, CAS, DELETE and a watch held [{card}]",
+          flush=True)
+    print(f"serving time: consensus-round stage {sv['round_stage_s']} s, "
+          f"persist {sv['persist_s']} s, apply {sv['apply_s']} s, the rest "
+          f"of the loop {sv['other_s']} s; the WAL's host CRC "
+          f"({'google_crc32c' if sv['crc_fast_path'] else 'pure Python'}) "
+          f"over the load's {sv['wal_bytes']} B re-run alone: "
+          f"{sv['wal_crc_s']} s; {sv['syncs_per_round']} host syncs per "
+          f"round; profiled burst: {pr['rounds']} rounds, "
+          f"{pr['launches_per_round']} kernel launches per round, idle "
+          f"share {pr['idle_share']} [{card}]", flush=True)
+
+    # 11. restart through the kernel, under each backend
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        src = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        made = cohosted_bench.write_restart_dir(
+            src, g=SERVE_G, k_per=RESTART_K_PER,
+            snap_keys=RESTART_SNAP_KEYS)
+        check(made["wal_bytes"] >= 8 << 20, "restart WAL under 8 MiB")
+        check(made["snap_bytes"] >= 4 << 20, "restart snapshot under 4 MiB")
+        print(f"restart dir: {made['records']} records, {made['wal_bytes']} "
+              f"B of WAL, a {made['snap_bytes']} B snapshot, written in "
+              f"{time.perf_counter() - t0} s", flush=True)
+        outs = {}
+        for b in BACKENDS:
+            o = cohosted_bench.restart(src, b, g=SERVE_G, m=M,
+                                       records=made["records"])
+            outs[b] = o
+            print(f"restart --storage-backend {b}: {o['seconds']} s = "
+                  f"{o['records_per_s']} records/s, lane {o['lane']} "
+                  f"({o['why']}), {o['launches']} raw_crc launches; "
+                  f"auto_crc32c's race: device wins "
+                  f"{o['device_hash_wins']} [{card}]", flush=True)
+        check(outs["host"]["launches"] == 0, "the host backend launched "
+              "the kernel")
+        check(outs["tpu"]["launches"] > 0, "the tpu restart did not launch "
+              "the raw-CRC kernel")
+        for b in BACKENDS[1:]:
+            check(outs[b]["raft_index"] == outs["host"]["raft_index"]
+                  and np.array_equal(outs[b]["frontier"],
+                                     outs["host"]["frontier"])
+                  and outs[b]["store"] == outs["host"]["store"],
+                  f"restart under {b} != under host")
+        store = outs["tpu"]["server"].store
+        for k in made["window_keys"] + made["snap_key_sample"]:
+            check(store.get(k, False, False).node.value, f"{k} lost")
+        loaded = cohosted_bench.snapshot_load(src)
+        print(f"snapshot load through auto_crc32c: {loaded['bytes']} B in "
+              f"{loaded['seconds']} s, {loaded['launches']} raw_crc "
+              f"launches (device wins the race: "
+              f"{loaded['device_hash_wins']}) [{card}]", flush=True)
+        per_chunk, _ = native.wal_count_range(np.concatenate(
+            [np.fromfile(os.path.join(src, "wal", f), np.uint8)
+             for f in sorted(os.listdir(os.path.join(src, "wal")))]),
+            0, DEFAULT_CHUNK_BYTES)
+        window = len(made["window_keys"])
+        records_n = made["records"]
+        for o in outs.values():
+            del o["server"]
+        del store
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"restart: all backends give raft_index {outs['host']['raft_index']}"
+          f", equal frontier and store; {window} window keys and the "
+          f"snapshot's keys read back", flush=True)
+    # the kernel at the stream lane's batch for these records (width
+    # class 128) and at the snapshot hash's [rows, 4096]
+    rows = torch.from_numpy(records(rng, _rows_per_chunk(
+        128, per_chunk, 1 << 17, 1 << 28), 128)).cuda()
+    k_stream = kernel_at(rows, reps=20)
+    rows = torch.from_numpy(records(
+        rng, -(-loaded["bytes"] // crc_kernel.CHUNK), crc_kernel.CHUNK)).cuda()
+    k_snap = kernel_at(rows, reps=20)
+    print(f"raw_crc at the restart's stream batch {k_stream['shape']}: "
+          f"{k_stream['ms']} ms, bound {k_stream['bound_ms']} ms; at the "
+          f"snapshot load's {k_snap['shape']}: {k_snap['ms']} ms, bound "
+          f"{k_snap['bound_ms']} ms [{card}]", flush=True)
+
+    # 12. the normal entry point, as a subprocess on the card
+    c = cohosted_bench.cli(g=SERVE_G, m=M)
+    print(f"cli --cohosted-groups {SERVE_G} --cohosted-members {M}: "
+          f"listening after {c['listen_s']} s, {c['keys']} PUTs (median "
+          f"{statistics.median(c['put_ms'])} ms) and GETs and /v2/machines "
+          f"held; killed (exit {c['exit_codes'][0]}), restarted with "
+          f"--storage-backend tpu, listening after {c['restart_listen_s']} s, "
+          f"every key read back [{card}]", flush=True)
+    return {"restarts": outs, "snapshot_load": loaded, "stream": k_stream,
+            "snapshot": k_snap, "records": records_n}
+
+
 def plain_step(buf, lens, stored, seed, state, *raft):
     """data_plane_step with the plain CRC in place of the kernel."""
     raw = crc_cuda.raw_crc_plain(buf)
@@ -733,7 +850,8 @@ def main() -> int:
           f"{bound_ms} ms ({nbytes} B, {ops} int8 ops) [{card}]")
     print(f"step {step_ms} ms = raw CRC kernel + chain verify {chain_ms} ms "
           f"+ replication round {raft_ms} ms [{card}]")
-    wall_ms, busy_ms, top = profile_calls(lambda: data_plane_step(*args))
+    p = cohosted_bench.profile_calls(lambda: data_plane_step(*args), 5, dev)
+    wall_ms, busy_ms, top = p["wall_ms"], p["busy_ms"], p["top"]
     check(busy_ms > 0, "the profiler saw no device time in the step")
     print(f"profiled step: {wall_ms} ms wall, {busy_ms} ms device busy, "
           f"idle share {1 - busy_ms / wall_ms} [{card}]")
@@ -799,6 +917,8 @@ def main() -> int:
 
     # 8. recovery: WAL replay (config 1, mixed widths), snapshot hash
     replay, snap = recovery(rng, card)
+    # 9-12. the co-hosted serving path
+    served = cohosted(rng, card)
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -866,6 +986,29 @@ def main() -> int:
             "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
             "library_ms": None, "design": RAW_DESIGN,
             "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"], **extra})
+    # raw_crc on the co-hosted server's restart: the tpu and auto
+    # restarts (WAL replay and the snapshot hash) and the snapshot load
+    # alone, timed at the restart's stream batch
+    rs, k = served["restarts"], served["stream"]
+    kernels.append({
+        "name": "raw_crc/restart", "route": "cuda",
+        "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+        "replaces": "etcd_tpu/ops/crc_pallas.py:40",
+        "launches": rs["tpu"]["launches"] + rs["auto"]["launches"]
+        + served["snapshot_load"]["launches"],
+        "max_abs_err": k["max_abs_err"], "bit_exact": k["max_abs_err"] == 0,
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
+        "library_ms": None, "design": RAW_DESIGN,
+        "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"],
+        "launches_by_backend": {b: rs[b]["launches"] for b in BACKENDS},
+        "lane_by_backend": {b: rs[b]["lane"] for b in BACKENDS},
+        "records_per_s": {b: rs[b]["records_per_s"] for b in BACKENDS},
+        "snapshot_load_launches": served["snapshot_load"]["launches"],
+        "snapshot_shape": served["snapshot"]["shape"],
+        "snapshot_ms": served["snapshot"]["ms"],
+        "snapshot_plain_ms": served["snapshot"]["plain_ms"],
+        "snapshot_bound_ms": served["snapshot"]["bound_ms"]})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

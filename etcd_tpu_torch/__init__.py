@@ -9,20 +9,28 @@ ported so far:
                 torch versions), its variant formulations, chain
                 verify, quorum commit index, the snapshot hash
                 (``crc_kernel.py``)
-    raft/       the [G]-batched Raft engine (``batched.py``)
+    raft/       the [G]-batched Raft engine (``batched.py``) and the
+                co-hosted G x M runtime on it (``multiraft.py``)
     parallel/   the fused single-card data-plane step
     wal/        the WAL (``wal.py``), its replay lanes on the card
                 (``replay_device.py``) and their router
                 (``backend_policy.py``)
-    snap/       the streamed-snapshot chunk verifier (``stream.py``)
-    wire/       the WAL's protobuf records (copies)
-    utils/      the WAL's fsync helpers, failpoints and ENOSPC error
+    snap/       the snapshotter and the streamed-snapshot chunk
+                verifier
+    store/      the hierarchical KV store with TTLs and watches (copy)
+    server/     the co-hosted multi-group server (``multigroup.py``)
+                and the seams it shares (``server.py``)
+    api/        the HTTP client API
+    cli.py      ``python -m etcd_tpu_torch.cli --cohosted-groups G``
+    wire/       the protobuf records and requests (copies)
+    utils/      errors, fsync helpers, failpoints, backoff, the wait
+                registry, the tracer, flags, TLS (copies)
     obs/        roofline accounting, a metrics registry, the device
                 ledger
     native.py   ctypes binding of ``native/walscan.cc`` (built with g++
                 at first use)
     scripts/    the raw-CRC variant race, the kernel sweep, the host
-                WAL builder
+                WAL builder, the co-hosted phases of ``chip_smoke.py``
     entry.py    example inputs and the entry point of that step
     csrc/       CUDA C++ sources, built with nvcc at first use
 

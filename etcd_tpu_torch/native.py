@@ -5,8 +5,9 @@ the replay lanes and the snapshot hash call: the framing scan
 (``wal_scan``, ``scan_chunk``, ``wal_count_range``,
 ``alloc_scan_arrays``), the fused scan + chain verify (``scan_verify``),
 the CRC-only chain sweep (``chain_verify``), row padding for the device
-(``pad_rows``), the synthetic stream generator (``wal_gen``) and the
-SSE4.2 CRC (``crc32c_update``).
+(``pad_rows``), the synthetic stream generator (``wal_gen``), the
+SSE4.2 CRC (``crc32c_update``) and the co-hosted restart's GroupEntry
+envelope sweep (``ge_scan``).
 
 The library is built with ``g++`` from the repository's
 ``native/walscan.cc`` at first use, into ``etcd_tpu_torch/build/`` under
@@ -126,6 +127,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                       u64, u64p, i64p]),
         "etcd_wal_gen": (i64, [u64, u64, u64, u32, u8p, u64]),
         "etcd_pad_rows": (i64, [u8p, u64p, u64p, u64, u64, u8p]),
+        "etcd_ge_scan": (i64, [u8p, u64, u64p, u64p, u64, i64p, i64p, i64p,
+                               i64p, u64p, u64p]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)
@@ -200,6 +203,27 @@ def wal_scan(blob: np.ndarray):
         etype.ctypes.data_as(u64), cap))
     return (types[:n], crcs[:n], doff[:n], dlen[:n], eidx[:n], eterm[:n],
             etype[:n])
+
+
+def ge_scan(blob: np.ndarray, data_off: np.ndarray,
+            data_len: np.ndarray):
+    """Batched GroupEntry envelope parse over entry-data spans: returns
+    (kind, group, gindex, gterm, payload_off, payload_len) int64/uint64
+    arrays, the native sweep behind the co-hosted server's restart (one
+    call instead of N ``GroupEntry.unmarshal``)."""
+    lib = require()
+    n = data_off.size
+    kind, group, gindex, gterm = (np.empty(n, np.int64) for _ in range(4))
+    poff = np.empty(n, np.uint64)
+    plen = np.empty(n, np.uint64)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    u64 = ctypes.POINTER(ctypes.c_uint64)
+    _check(lib.etcd_ge_scan(
+        _u8(blob), blob.size, _u64(data_off), _u64(data_len), n,
+        kind.ctypes.data_as(i64), group.ctypes.data_as(i64),
+        gindex.ctypes.data_as(i64), gterm.ctypes.data_as(i64),
+        poff.ctypes.data_as(u64), plen.ctypes.data_as(u64)))
+    return kind, group, gindex, gterm, poff, plen
 
 
 def chain_verify(blob: np.ndarray, data_off: np.ndarray,

@@ -1,2 +1,3 @@
 """Raft consensus on the card: ``batched`` is the [G, ...]-batched engine
-(the port of ``etcd_tpu/raft/batched.py``)."""
+and ``multiraft`` the co-hosted G-groups x M-members runtime on it (the
+port of ``etcd_tpu/raft/batched.py`` and ``multiraft.py``)."""

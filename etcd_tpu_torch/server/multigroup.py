@@ -1,0 +1,852 @@
+"""Co-hosted multi-group server: G raft groups behind the serving seams
+(the port of ``etcd_tpu/server/multigroup.py``; the reference's ``mesh=``
+sharding is not ported yet).
+
+The reference binds ONE raft group to one process
+(etcdserver/server.go:191-218); its in-process cluster tests wire N
+real servers through an injected send function
+(server_test.go:370-447).  This module is that pattern generalized the
+TPU-first way: ALL M members of G co-hosted groups live in one
+process, consensus for every group advances in ONE device round per
+batch (raft/multiraft.py, on ``default_device(device)``: CUDA unless the
+caller passes ``device="cpu"``), and the serving seams are the same ones
+the reference exposes —
+
+- **Request path**: ``do(Request)`` routes a client write to its
+  group (first path segment → group, sha1-hashed like member IDs,
+  cluster.py) and blocks on the wait registry until the entry commits
+  and applies (server.go:337-380's propose→wait pattern).
+- **Storage seam**: one WAL stream per server (wal/wal.py — same
+  record framing, device-replayable as a single batch) multiplexing
+  all groups via :class:`~etcd_tpu_torch.wire.GroupEntry` envelopes,
+  plus commit-frontier markers; snapshots via the standard Snapshotter,
+  hashed through ``ops.crc_kernel.auto_crc32c`` (the raw-CRC kernel on
+  the card for large snapshots) unless the backend is ``host``.
+  Entries are durable BEFORE client acks (the Ready contract,
+  node.go:41-60, translated to the co-hosted fate-sharing model).
+- **Store seam**: one shared KV tree; group namespaces are path
+  prefixes, so watches/TTLs/stats work unchanged.
+
+Durability model (differs from per-member WALs, deliberately): the M
+co-hosted members share process fate, so the durability unit is the
+*server*, not the member — one WAL records appended entries and the
+per-group commit frontier; restart replays committed prefixes and
+re-elects.  Entries beyond the last persisted frontier were never
+client-acked and are dropped on restart (timeout semantics permit
+either outcome).
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import json
+import logging
+import os
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..obs import metrics as _obs
+from ..ops.crc_kernel import auto_crc32c
+from ..snap import DEFAULT_SNAP_KEEP, NoSnapshotError, Snapshotter
+from ..store import Store
+from ..utils.backoff import Backoff
+from ..utils.errors import EtcdNoSpace
+from ..utils.trace import maybe_start_profile, stop_profile, tracer
+from ..utils.wait import Wait
+from ..wal import WAL, exist as wal_exist
+from ..wire import Entry, GroupEntry, HardState, Snapshot
+from ..wire.requests import Info, Request
+from .cluster import ClusterStore
+from .server import (
+    DEFAULT_SNAP_COUNT,
+    Response,
+    ServerStoppedError,
+    apply_request_to_store,
+    gen_id,
+)
+from .stats import LeaderStats, ServerStats
+
+log = logging.getLogger(__name__)
+
+TICK_INTERVAL = 0.1        # reference server.go:182
+
+# obs seams: apply-loop shape + election churn, process-wide
+_M_APPLY_S = _obs.registry.histogram("etcd_apply_seconds")
+_M_APPLY_N = _obs.registry.histogram("etcd_apply_batch_entries")
+_M_CAMPAIGNS = _obs.registry.counter("etcd_election_campaigns_total")
+_M_WINS = _obs.registry.counter("etcd_election_wins_total")
+# read serve paths: the co-hosted tier is single-copy — every
+# member shares ONE store and writes ack only after apply, so a local
+# read is linearizable by construction ("cohosted"); the serializable
+# label marks the explicit opt-out for parity with the dist tier
+_M_READ_COHOSTED = _obs.registry.counter(
+    "etcd_read_serve_total", path="cohosted", outcome="ok")
+_M_READ_SERIALIZABLE = _obs.registry.counter(
+    "etcd_read_serve_total", path="serializable", outcome="ok")
+
+
+def group_of(path: str, g: int) -> int:
+    """Deterministic namespace → group routing: sha1 of the first
+    path segment (the same hash family as member IDs, member.go:37)."""
+    ns = path.strip("/").split("/", 1)[0]
+    h = hashlib.sha1(ns.encode()).digest()
+    return int.from_bytes(h[:8], "big") % g
+
+
+@dataclass
+class _Pending:
+    req: Request
+    data: bytes
+    id: int
+    retries: int = 0
+    # explicit group routing (ConfChange entries target a group
+    # directly instead of hashing a client path)
+    group: int | None = None
+
+
+class MultiGroupServer:
+    """G co-hosted raft groups serving one namespaced KV tree."""
+
+    def __init__(self, data_dir: str, *, g: int = 64, m: int = 3,
+                 cap: int = 1024, name: str = "multigroup",
+                 snap_count: int = DEFAULT_SNAP_COUNT,
+                 storage_backend: str = "auto",
+                 max_batch_ents: int = 32,
+                 tick_interval: float = TICK_INTERVAL,
+                 sync_interval: float = 0.5,
+                 spare_member_slots: int = 1,
+                 client_urls: list[str] | None = None,
+                 device=None):
+        from .. import default_device
+        from ..raft.multiraft import MultiRaft
+
+        # resolved before any disk mutation: without CUDA (and no
+        # device="cpu") construction raises here
+        self.device = default_device(device)
+
+        # ``m`` live members now; ``spare_member_slots`` empty slots
+        # are allocated so runtime AddMember has somewhere to land
+        # (batched state is static-shaped — slots are pre-sized, the
+        # members mask is what a committed ConfChange flips)
+        self.g, self.m = g, m + spare_member_slots
+        self.live = m
+        self.name = name
+        self.snap_count = snap_count or DEFAULT_SNAP_COUNT
+        self.backend = storage_backend
+        self.tick_interval = tick_interval
+        self.sync_interval = sync_interval
+        self._campaign_slot = 0
+        self.id = int.from_bytes(
+            hashlib.sha1(name.encode()).digest()[:8], "big") & (2**63 - 1)
+
+        self.store = Store()
+        # decoupled watch delivery: the fused apply loop only
+        # queues events; match + watcher puts run on the engine thread
+        self.store.fanout.start()
+        self.w = Wait()
+        self.done = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._queue: queue.Queue[_Pending | None] = queue.Queue()
+        self._requeue: list[deque[_Pending]] = [deque() for _ in range(g)]
+
+        self.server_stats = ServerStats(name, self.id)
+        self.leader_stats = LeaderStats(self.id)
+        self.cluster_store = ClusterStore(self.store)
+        self._client_urls = client_urls or []
+
+        os.makedirs(data_dir, mode=0o700, exist_ok=True)
+        self._snapdir = os.path.join(data_dir, "snap")
+        os.makedirs(self._snapdir, mode=0o700, exist_ok=True)
+        self._waldir = os.path.join(data_dir, "wal")
+        crc_fn = None
+        if storage_backend != "host":
+            # large snapshots hash on the card (the raw-CRC kernel) when
+            # the one-time race says it wins; small ones on the host
+            crc_fn = functools.partial(auto_crc32c, device=self.device)
+
+        self.ss = Snapshotter(
+            self._snapdir, crc_fn=crc_fn,
+            keep=int(os.environ.get("ETCD_SNAP_KEEP",
+                                    DEFAULT_SNAP_KEEP)))
+
+        self.seq = 0                      # global WAL entry sequence
+        self.applied = np.zeros(g, np.int64)   # per-group applied idx
+        self.raft_index = 0               # applied entries total
+        self.raft_term = 0
+        self._snapi = 0                   # raft_index at last snapshot
+        # NOSPACE read-only mode: a persist that hits
+        # EtcdNoSpace HOLDS its (assigned, ents, hardstate) batch —
+        # applies and client acks wait behind the held persist,
+        # which retries at probe cadence; meanwhile writes are
+        # rejected with errorCode 405 and reads keep serving off the
+        # shared store.
+        self._nospace = False
+        self._held: tuple | None = None
+        self._nospace_backoff = Backoff(base=0.25, cap=5.0,
+                                        site="nospace_probe")
+        self._nospace_probe_t = 0.0
+        self._m_nospace = _obs.registry.gauge("etcd_nospace_active")
+
+        if wal_exist(self._waldir):
+            self._restart(cap, max_batch_ents)
+        else:
+            self.mr = MultiRaft(g, self.m, cap,
+                                max_batch_ents=max_batch_ents,
+                                live=self.live, device=self.device)
+            self.wal = WAL.create(self._waldir,
+                                  Info(id=self.id).marshal())
+            # seq-0 zero-frontier marker: WAL replay requires entry
+            # indices contiguous from the open index (wal.go:171-175)
+            zero = np.zeros(g, np.int32).tobytes()
+            self.wal.save(HardState(), [Entry(
+                index=0, term=0,
+                data=GroupEntry(kind=1, payload=zero + zero)
+                .marshal())])
+
+    # -- bootstrap / restart ---------------------------------------------
+
+    def _restart(self, cap: int, max_batch_ents: int) -> None:
+        """Snapshot + WAL replay → store + re-seeded consensus state.
+
+        The WAL is replayed through the backend-honoring seam
+        (server.py:_replay_wal — device batch replay when it pays);
+        only entries at or below the last persisted commit frontier
+        apply (never-acked tails drop); every member re-seeds with the
+        committed log's compacted form and fresh elections start above
+        the replayed term.
+        """
+        from ..raft.multiraft import MultiRaft
+
+        g = self.g
+        frontier = np.zeros(g, np.int64)
+        terms = np.zeros(g, np.int64)
+        snap_index = 0
+        try:
+            snap = self.ss.load()
+        except NoSnapshotError:
+            snap = None
+        applied_total = 0
+        if snap is not None:
+            blob = json.loads(snap.data.decode())
+            if len(blob["frontier"]) != g:
+                raise RuntimeError(
+                    f"snapshot was written with --cohosted-groups "
+                    f"{len(blob['frontier'])}, not {g}")
+            self.store.recovery(blob["store"].encode())
+            frontier = np.asarray(blob["frontier"], np.int64)
+            terms = np.asarray(blob["terms"], np.int64)
+            snap_index = blob["seq"]
+            applied_total = blob.get("applied_total", 0)
+            log.info("multigroup: restart from snapshot seq=%d",
+                     snap_index)
+        snap_frontier = frontier.copy()
+        # an empty post-snapshot tail must not reset the sequence
+        self.seq = snap_index
+
+        from .gereplay import scan as ge_stream_scan
+        from .server import _replay_wal_raw
+
+        # restart replay routes through the measured backend policy
+        # (stage "restart"), its device lanes on this server's device
+        self.wal, md, hard_state, raw = _replay_wal_raw(
+            self._waldir, snap_index, self.backend, stage="restart",
+            device=self.device)
+        info = Info.unmarshal(md or b"")
+        if info.id != self.id:
+            raise RuntimeError(
+                f"unexpected server id {info.id:x}, want {self.id:x}")
+
+        # array pass: ONE native envelope sweep + vectorized
+        # last-record-wins dedup and frontier selection — the device
+        # replay hands back struct-of-arrays and the restart stays in
+        # that shape instead of walking 1M GroupEntry objects
+        stream = ge_stream_scan(raw)
+        if len(stream):
+            self.seq = max(self.seq, int(stream.seq.max()))
+        fpos = stream.last_of_kind(1)
+        if fpos >= 0:
+            v = np.frombuffer(stream.payload(fpos), np.int32)
+            if v.size != 2 * g:
+                raise RuntimeError(
+                    f"data dir was written with --cohosted-groups "
+                    f"{v.size // 2}, not {g}; group routing would "
+                    f"silently change")
+            frontier = v[:g].astype(np.int64)
+            terms = v[g:2 * g].astype(np.int64)
+
+        # committed winners apply in stream order; only the applying
+        # slice materializes Python objects (CONFCHANGE entries touch
+        # the engine, not the store — they re-apply after seeding)
+        winners = stream.winner_positions()
+        committed = winners[
+            (stream.gindex[winners] > snap_frontier[
+                stream.group[winners]])
+            & (stream.gindex[winners] <= frontier[
+                stream.group[winners]])]
+        conf_changes: list[tuple[int, Request]] = []
+        applied_n = int(committed.size)
+        for k in committed:
+            payload = stream.payload(int(k))
+            if not payload:
+                continue
+            r = Request.unmarshal(payload)
+            if r.method == "CONFCHANGE":
+                conf_changes.append((int(stream.group[k]), r))
+            else:
+                apply_request_to_store(self.store, r)
+
+        self.applied = frontier.copy()
+        self.raft_index = applied_total + applied_n
+        self.raft_term = int(terms.max()) if g else 0
+        self._snapi = self.raft_index
+
+        # re-seed consensus: every member holds the committed log in
+        # compacted form (offset = last = commit = applied = frontier,
+        # slot 0 carries the frontier term for match checks)
+        mr = MultiRaft(g, self.m, cap, max_batch_ents=max_batch_ents,
+                       live=self.live, device=self.device)
+        fr = mr._put_g(frontier, np.int32)
+        tm = mr._put_g(terms, np.int32)
+        slot0 = torch.zeros((g, cap), dtype=torch.int32,
+                            device=self.device)
+        slot0[:, 0] = tm
+        members = None
+        if snap is not None and "members" in blob:
+            msnap = np.asarray(blob["members"], bool)
+            if msnap.shape[1] < self.m:
+                # restart with MORE spare slots: pad the mask (new
+                # slots start empty — the add_member migration path)
+                msnap = np.pad(msnap,
+                               ((0, 0), (0, self.m - msnap.shape[1])))
+            elif msnap.shape[1] > self.m:
+                extra = msnap[:, self.m:]
+                if extra.any():
+                    raise RuntimeError(
+                        f"snapshot uses member slot(s) >= {self.m}; "
+                        f"restart with spare_member_slots >= "
+                        f"{msnap.shape[1] - self.live}")
+                msnap = msnap[:, :self.m]
+            members = mr._put_g(msnap)
+        for s in range(self.m):
+            st = mr.states[s]
+            st = st._replace(
+                term=tm, offset=fr, last=fr, commit=fr, applied=fr,
+                log_term=slot0)
+            if members is not None:
+                st = st._replace(
+                    members=members,
+                    nmembers=members.sum(dim=1).to(torch.int32))
+            mr.states[s] = st
+        self.mr = mr
+        # committed ConfChanges in the replayed window re-apply to
+        # the fresh engine (the snapshot's members mask carries
+        # everything below it)
+        for gi, r in conf_changes:
+            self._apply_conf_change(gi, r)
+        log.info("multigroup: replayed %d records, %d applied, "
+                 "max term %d", len(stream), applied_n,
+                 self.raft_term)
+
+    # -- lifecycle --------------------------------------------------------
+
+    def start(self) -> None:
+        maybe_start_profile()
+        self._register_self()
+        # bootstrap election + one replication round BEFORE serving:
+        # the first rounds (the card's context, the allocator's first
+        # blocks) must not eat into early clients' 500ms timeouts
+        if (self.mr.leader < 0).any():
+            with tracer.span("mg.bootstrap_election"):
+                self._campaign_and_fence(self.mr.leader < 0)
+        else:
+            self._absorb_commits({})
+        self._thread = threading.Thread(target=self.run, daemon=True)
+        self._thread.start()
+
+    def _register_self(self) -> None:
+        """Register this server under /_etcd/machines so
+        /v2/machines serves real endpoints (member.go:15,57's
+        replicated-registry pattern; idempotent across restarts)."""
+        from .cluster import Member
+
+        try:
+            self.cluster_store.add(Member(
+                id=self.id, name=self.name,
+                peer_urls=self._client_urls,
+                client_urls=self._client_urls))
+        except Exception:
+            pass  # already registered (e.g. restored from snapshot)
+
+    def _campaign_and_fence(self, mask) -> None:
+        """Elect leaders for the masked groups, then persist fence
+        records for the becoming-leader empty entries: they consume a
+        gindex without a client payload, and an older never-acked
+        record at that index must not win the next restart's replay
+        (last-record-wins would resurrect dropped data)."""
+        mr = self.mr
+        slot = self._campaign_slot
+        self._campaign_slot = (slot + 1) % self.m
+        mask_np = np.asarray(mask, bool)
+        won = mr.campaign(slot, mask=mask_np)
+        _M_CAMPAIGNS.inc(int(mask_np.sum()))
+        _M_WINS.inc(int(won.sum()))
+        fences: list[Entry] = []
+        if won.any():
+            base = mr.last_base
+            valid = mr.last_valid
+            terms_now = mr.max_terms()
+            for gi in np.nonzero(won & valid)[0]:
+                self.seq += 1
+                fences.append(Entry(
+                    index=self.seq, term=int(terms_now[gi]),
+                    data=GroupEntry(
+                        kind=0, group=int(gi),
+                        gindex=int(base[gi]) + 1,
+                        gterm=int(terms_now[gi])).marshal()))
+        self._absorb_commits({}, fences)
+
+    def stop(self) -> None:
+        self.done.set()
+        self._queue.put(None)  # wake the loop
+        if self._thread is not None \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=10)
+        self.store.fanout.close()
+        self.wal.close()
+        stop_profile()
+
+    # -- client request path ----------------------------------------------
+
+    def do(self, r: Request, timeout: float | None = None) -> Response:
+        """The serving seam (server.go:337-380): writes and quorum
+        reads go through their group's consensus; plain GETs and
+        watches serve from the shared store."""
+        if r.id == 0:
+            raise ValueError("r.id cannot be 0")
+        if r.method == "GET" and r.quorum:
+            r.method = "QGET"
+        if r.method in ("POST", "PUT", "DELETE", "QGET"):
+            if self._nospace:
+                # read-only NOSPACE mode: the distinct error code
+                # (reads below keep serving the shared store)
+                raise EtcdNoSpace(
+                    cause="member is read-only (NOSPACE)")
+            ch = self.w.register(r.id)
+            self._queue.put(_Pending(req=r, data=r.marshal(), id=r.id))
+            try:
+                x = ch.get(timeout=timeout)
+            except queue.Empty:
+                self.w.trigger(r.id, None)  # GC wait
+                raise TimeoutError("request timed out")
+            if x is None:
+                if self.done.is_set():
+                    raise ServerStoppedError()
+                raise TimeoutError("request dropped (no leader)")
+            if x.err is not None:
+                raise x.err
+            return x
+        if r.method == "GET":
+            if r.wait:
+                wc = self.store.watch(r.path, r.recursive, r.stream,
+                                      r.since)
+                return Response(watcher=wc)
+            if r.serializable:
+                _M_READ_SERIALIZABLE.inc()
+                self.store.stats.inc_read_path("serializable")
+            else:
+                _M_READ_COHOSTED.inc()
+                self.store.stats.inc_read_path("cohosted")
+            ev = self.store.get(r.path, r.recursive, r.sorted)
+            return Response(event=ev)
+        from .server import UnknownMethodError
+
+        raise UnknownMethodError(r.method)
+
+    # -- runtime membership (server.go:382-404, 542-559 batched) ----------
+
+    def add_member(self, slot: int,
+                   timeout: float | None = 30.0) -> None:
+        """Grow every group's cluster to include member ``slot``: one
+        ConfChange entry per group, proposed through THAT group's log
+        and applied only once committed (quorum under the OLD
+        membership authorizes the change, as in the reference's
+        ProposeConfChange → applyConfChange path)."""
+        self._conf_change(True, slot, timeout)
+
+    def remove_member(self, slot: int,
+                      timeout: float | None = 30.0) -> None:
+        """Shrink every group's cluster: the removed slot's progress
+        stops counting toward quorums the moment the entry commits;
+        a removed leader's groups elect fresh on the next timeout."""
+        self._conf_change(False, slot, timeout)
+
+    def _conf_change(self, add: bool, slot: int,
+                     timeout: float | None) -> None:
+        if not (0 <= slot < self.m):
+            raise ValueError(
+                f"slot {slot} out of range (allocated {self.m} "
+                f"member slots; grow spare_member_slots to add more)")
+        payload = json.dumps({"add": bool(add), "slot": int(slot)})
+        chans = []
+        for gi in range(self.g):
+            r = Request(method="CONFCHANGE", id=gen_id(),
+                        path=f"/_confchange/{gi}", val=payload)
+            ch = self.w.register(r.id)
+            chans.append((r.id, ch))
+            self._queue.put(_Pending(req=r, data=r.marshal(),
+                                     id=r.id, group=gi))
+        deadline = None if timeout is None else time.time() + timeout
+        for rid, ch in chans:
+            left = None if deadline is None \
+                else max(deadline - time.time(), 0.01)
+            try:
+                x = ch.get(timeout=left)
+            except queue.Empty:
+                self.w.trigger(rid, None)
+                raise TimeoutError(
+                    "conf change timed out (some groups uncommitted)")
+            if x is None:
+                raise ServerStoppedError() if self.done.is_set() \
+                    else TimeoutError("conf change dropped")
+
+    def _apply_conf_change(self, gi: int, r: Request) -> None:
+        d = json.loads(r.val)
+        mask = np.zeros(self.g, bool)
+        mask[gi] = True
+        self.mr.apply_conf_change(bool(d["add"]), int(d["slot"]),
+                                  mask=mask)
+
+    def members_of(self, gi: int) -> np.ndarray:
+        """[M] live-membership mask of group ``gi`` (slot capacity M;
+        quorum = live//2 + 1)."""
+        return self.mr.states[0].members[gi].cpu().numpy()
+
+    # -- RaftTimer --------------------------------------------------------
+
+    def index(self) -> int:
+        return self.raft_index
+
+    def term(self) -> int:
+        return self.raft_term
+
+    # -- the batched apply loop -------------------------------------------
+
+    def run(self) -> None:
+        """The co-hosted generalization of the reference run() loop
+        (server.go:247-323): drain a batch of proposals, ONE fused
+        consensus round for all groups, persist, apply, ack."""
+        mr = self.mr
+        next_tick = time.monotonic() + self.tick_interval
+        next_sync = time.monotonic() + self.sync_interval
+        batch: list[_Pending] = []
+
+        while not self.done.is_set():
+            batch = self._drain(timeout=min(
+                self.tick_interval,
+                max(next_tick - time.monotonic(), 0.001)))
+            if self.done.is_set():
+                break
+            now = time.monotonic()
+            if self._nospace:
+                # read-only: reject queued writes with the typed
+                # code, retry the held persist at probe cadence,
+                # and propose nothing new (the engine log must not
+                # outgrow a WAL that cannot take records)
+                err = EtcdNoSpace(
+                    cause="member is read-only (NOSPACE)")
+                for p in batch:
+                    self.w.trigger(p.id, Response(err=err))
+                for q in self._requeue:
+                    while q:
+                        self.w.trigger(q.popleft().id,
+                                       Response(err=err))
+                if now >= self._nospace_probe_t:
+                    self._nospace_recover()
+                continue
+            if now >= next_tick:
+                if (mr.leader < 0).any():
+                    self._campaign_and_fence(mr.leader < 0)
+                next_tick = now + self.tick_interval
+            if now >= next_sync:
+                # TTL expiry: co-hosted members share ONE store, so
+                # the reference's proposal-carried SYNC determinism
+                # (server.go:438-456) is vacuous here — expire
+                # directly on the shared tree
+                self.store.delete_expired_keys(time.time())
+                next_sync = now + self.sync_interval
+
+            n_new = np.zeros(self.g, np.int32)
+            data: list[list[bytes]] = [[] for _ in range(self.g)]
+            items: list[list[_Pending]] = [[] for _ in range(self.g)]
+            for gi in range(self.g):
+                q = self._requeue[gi]
+                while q and len(items[gi]) < mr.e:
+                    items[gi].append(q.popleft())
+            for p in batch:
+                gi = p.group if p.group is not None \
+                    else group_of(p.req.path, self.g)
+                if len(items[gi]) >= mr.e:
+                    self._requeue[gi].append(p)
+                    continue
+                items[gi].append(p)
+            for gi in range(self.g):
+                n_new[gi] = len(items[gi])
+                data[gi] = [p.data for p in items[gi]]
+
+            if not n_new.any() and (mr.commit_index() ==
+                                    self.applied).all():
+                # idle heartbeat round only when a leader exists
+                if (mr.leader >= 0).any():
+                    mr.replicate()
+                self._absorb_commits({})
+                continue
+
+            with tracer.stage("mg.consensus_round"):
+                mr.propose(n_new, data=data)
+            valid = mr.last_valid
+            base = mr.last_base
+            terms_now = mr.max_terms()
+            assigned: dict[tuple[int, int], _Pending] = {}
+            to_persist: list[Entry] = []
+            for gi in range(self.g):
+                if not items[gi]:
+                    continue
+                if not valid[gi]:
+                    # no leader / overflow: retry a few rounds, then
+                    # fail the clients (reference: request timeout)
+                    for p in items[gi]:
+                        p.retries += 1
+                        if p.retries < 50:
+                            self._requeue[gi].append(p)
+                        else:
+                            self.w.trigger(p.id, None)
+                    continue
+                for j, p in enumerate(items[gi]):
+                    idx = int(base[gi]) + 1 + j
+                    assigned[(gi, idx)] = p
+                    self.seq += 1
+                    to_persist.append(Entry(
+                        index=self.seq, term=self.raft_term,
+                        data=GroupEntry(
+                            kind=0, group=gi, gindex=idx,
+                            gterm=int(terms_now[gi]),
+                            payload=p.data).marshal()))
+
+            self._absorb_commits(assigned, to_persist, terms_now)
+            if bool(mr.errors["overflow"].any()):
+                # compaction AFTER absorb: mark_applied(self.applied)
+                # inside _absorb_commits bounds it, so committed-but-
+                # unapplied payloads are never pruned
+                mr.compact()
+
+        # server stopping: promptly release EVERY waiter — the final
+        # drained batch, anything still queued, and the requeues
+        for p in batch:
+            self.w.trigger(p.id, None)
+        while True:
+            try:
+                p = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if p is not None:
+                self.w.trigger(p.id, None)
+        for q in self._requeue:
+            while q:
+                self.w.trigger(q.popleft().id, None)
+
+    def _drain(self, timeout: float) -> list[_Pending]:
+        """Block briefly for the first proposal, then sweep the rest
+        (request pipelining: one device round serves the batch)."""
+        out: list[_Pending] = []
+        try:
+            p = self._queue.get(timeout=timeout)
+        except queue.Empty:
+            return out
+        if p is not None:
+            out.append(p)
+        while True:
+            try:
+                p = self._queue.get_nowait()
+            except queue.Empty:
+                return out
+            if p is not None:
+                out.append(p)
+
+    def _absorb_commits(self, assigned, to_persist=None,
+                        terms_now=None) -> None:
+        """Persist-then-apply: newly appended entries and the commit
+        frontier go to the WAL (fsync) BEFORE any client ack — the
+        Ready contract's ordering (node.go:41-60) at batch level."""
+        mr = self.mr
+        if self._nospace:
+            # applies and acks queue behind the held persist; the
+            # recovery path re-runs this once the save lands
+            return
+        commit = mr.commit_index().astype(np.int64)
+        newly = commit > self.applied
+        if to_persist or newly.any():
+            terms = np.zeros(self.g, np.int32)
+            if newly.any():
+                if terms_now is None:
+                    terms_now = mr.max_terms()
+                terms = terms_now
+                self.raft_term = max(self.raft_term,
+                                     int(terms.max()))
+            frontier = GroupEntry(
+                kind=1, payload=commit.astype(np.int32).tobytes()
+                + terms.tobytes()).marshal()
+            self.seq += 1
+            ents = (to_persist or []) + [
+                Entry(index=self.seq, term=self.raft_term,
+                      data=frontier)]
+            hs = HardState(term=self.raft_term, vote=0,
+                           commit=self.seq)
+            try:
+                with tracer.stage("mg.persist"):
+                    self.wal.save(hs, ents)
+            except EtcdNoSpace as e:
+                # full disk: HOLD the batch (seqs stay allocated —
+                # the WAL rolled its file back, so re-writing the
+                # same records at recovery is seq-contiguous) and go
+                # read-only.  Nothing applies and nothing acks until
+                # the save lands: the Ready-contract ordering is
+                # preserved by simply not advancing.
+                self._held = (dict(assigned), ents, hs)
+                self._enter_nospace(e)
+                return
+
+        if not newly.any():
+            return
+        n_apply = int((commit - self.applied)[newly].sum())
+        t0 = time.perf_counter()
+        with tracer.stage("mg.apply"):
+            self._apply_newly(assigned, commit, newly)
+        _M_APPLY_N.observe(n_apply)
+        _M_APPLY_S.observe(time.perf_counter() - t0)
+        mr.mark_applied(self.applied)
+
+        if self.raft_index - self._snapi > self.snap_count:
+            try:
+                self.snapshot()
+            except EtcdNoSpace as e:
+                # snapshot save / cut hit a full disk: degrade to
+                # read-only (the trigger re-fires after recovery)
+                self._enter_nospace(e)
+
+    # -- NOSPACE read-only mode ---------------------------------------------
+
+    def _enter_nospace(self, e: EtcdNoSpace) -> None:
+        if not self._nospace:
+            self._nospace = True
+            self._nospace_backoff.reset()
+            self._m_nospace.set(1)
+            log.error("multigroup: ENTERING NOSPACE read-only mode "
+                      "(%s): writes rejected with errorCode 405, "
+                      "reads keep serving", e.cause)
+        self._nospace_probe_t = (time.monotonic()
+                                 + self._nospace_backoff.next())
+
+    def _exit_nospace(self) -> None:
+        if self._nospace:
+            self._nospace = False
+            self._nospace_backoff.reset()
+            self._m_nospace.set(0)
+            log.warning("multigroup: NOSPACE recovered — accepting "
+                        "writes again")
+
+    def _nospace_recover(self) -> None:
+        """Run-loop probe: re-persist the held batch (same seqs —
+        the WAL rolled its file back to the pre-batch mark), then
+        apply + ack it; without a held batch just probe the disk."""
+        try:
+            held = self._held
+            if held is not None:
+                assigned, ents, hs = held
+                with tracer.stage("mg.persist"):
+                    self.wal.save(hs, ents)
+                self._held = None
+                self._exit_nospace()
+                # applies + client acks ride the normal absorb path
+                # now that the records are durable
+                self._absorb_commits(assigned)
+            else:
+                self.wal.probe_space()
+                self._exit_nospace()
+        except EtcdNoSpace:
+            self._nospace_probe_t = (time.monotonic()
+                                     + self._nospace_backoff.next())
+
+    def _apply_newly(self, assigned, commit, newly) -> None:
+        mr = self.mr
+        with self.store.fanout_round():
+            self._apply_newly_inner(assigned, commit, newly, mr)
+
+    def _apply_newly_inner(self, assigned, commit, newly, mr) -> None:
+        for gi in np.nonzero(newly)[0]:
+            for idx in range(int(self.applied[gi]) + 1,
+                             int(commit[gi]) + 1):
+                payload = mr.committed_payload(int(gi), idx)
+                resp = None
+                if payload:
+                    r = Request.unmarshal(payload)
+                    if r.method == "CONFCHANGE":
+                        # committed membership change: flip the
+                        # engine's members mask for THIS group
+                        # (reference applyConfChange,
+                        # server.go:542-559)
+                        self._apply_conf_change(int(gi), r)
+                        resp = Response()
+                    else:
+                        resp = apply_request_to_store(self.store, r)
+                self.raft_index += 1
+                p = assigned.pop((int(gi), idx), None)
+                if p is not None:
+                    self.w.trigger(p.id, resp)
+                else:
+                    # an entry assigned in an earlier round: find its
+                    # waiter via the id embedded in the request
+                    if payload:
+                        self.w.trigger(r.id, resp)
+            self.applied[gi] = commit[gi]
+
+    # -- snapshot / compaction --------------------------------------------
+
+    def snapshot(self) -> None:
+        """Store snapshot + frontier → snap file; compact the device
+        logs; cut the WAL (server.go:562-571 batched)."""
+        mr = self.mr
+        terms = mr.max_terms()
+        blob = json.dumps({
+            "store": self.store.save().decode(),
+            "frontier": [int(x) for x in self.applied],
+            "terms": [int(x) for x in terms],
+            "seq": self.seq,
+            "applied_total": self.raft_index,
+            # per-group live-membership mask: conf changes below the
+            # snapshot don't need their entries replayed
+            "members": self.mr.states[0].members.cpu().numpy()
+            .astype(int).tolist(),
+        }).encode()
+        with tracer.span("mg.snapshot"):
+            snap_seq = self.seq
+            self.ss.save_snap(Snapshot(data=blob, index=snap_seq,
+                                       term=self.raft_term))
+            mr.compact()
+            self.wal.cut()
+            # snapshot is durable (save_snap fsyncs file+dir): WAL
+            # segments wholly behind the OLDEST retained snapshot
+            # can go — bounded disk under sustained traffic while
+            # load()'s corrupt-newest fallback keeps a replayable
+            # chain (crash-ordering per WAL.gc)
+            floor = self.ss.retained_floor()
+            self.wal.gc(snap_seq if floor is None else floor)
+        self._snapi = self.raft_index
+        log.info("multigroup: snapshot at seq=%d (applied=%d)",
+                 self.seq, self.raft_index)

@@ -1,2 +1,3 @@
-"""Host utilities the WAL needs (the port's own copies): the ENOSPC
-error, durable fsync helpers and the WAL's failpoints."""
+"""Host utilities (the port's own copies): the etcd error codes, durable
+fsync helpers, failpoints, backoff, the wait registry, the tracer, the
+CLI's flag helpers and TLS contexts."""

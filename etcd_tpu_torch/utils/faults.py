@@ -1,7 +1,7 @@
 """Named failpoints of the WAL's I/O seams, and the fail-stop exit.
 
 The port's copy of the part of ``etcd_tpu/utils/faults.py`` that the WAL
-calls, with the same failpoint names.  A seam calls
+and the snapshotter call, with the same failpoint names.  A seam calls
 ``hit("wal.fsync")``; a configured rule makes that call raise
 ``OSError(errno)``: ``err(EIO)`` or ``enospc()``, on every matching
 call or, with ``once``, on the first only.  Rules come from a spec
@@ -41,6 +41,8 @@ FAULT_CATALOG: dict[str, str] = {
                  "fail-stop exit",
     "wal.cut": "WAL segment cut entry",
     "wal.gc": "WAL segment GC entry",
+    "snap.save": "Snapshotter save entry (before the file is opened); "
+                 "enospc => EtcdNoSpace, err => fail-stop",
 }
 
 

@@ -1,22 +1,40 @@
-"""Protobuf codecs of the WAL's records (the port's own copy of the part
-of ``etcd_tpu/wire`` the WAL uses), byte-compatible with the reference's
-generated marshalers, so WAL segments written by either package replay
-in the other."""
+"""Protobuf codecs (the port's own copy of the part of ``etcd_tpu/wire``
+the WAL, the snapshotter and the co-hosted server use), byte-compatible
+with the reference's generated marshalers, so WAL segments and snapshot
+files written by either package replay in the other."""
 
 from .proto import (
+    CONF_CHANGE_ADD_NODE,
+    CONF_CHANGE_REMOVE_NODE,
+    ENTRY_CONF_CHANGE,
     ENTRY_NORMAL,
+    ConfChange,
     Entry,
+    GroupEntry,
     HardState,
     ProtoError,
     Record,
+    SnapPb,
+    Snapshot,
     is_empty_hard_state,
+    is_empty_snap,
+    marshal_group_entries,
 )
 
 __all__ = [
+    "CONF_CHANGE_ADD_NODE",
+    "CONF_CHANGE_REMOVE_NODE",
+    "ENTRY_CONF_CHANGE",
     "ENTRY_NORMAL",
+    "ConfChange",
     "Entry",
+    "GroupEntry",
     "HardState",
     "ProtoError",
     "Record",
+    "SnapPb",
+    "Snapshot",
     "is_empty_hard_state",
+    "is_empty_snap",
+    "marshal_group_entries",
 ]

@@ -1,14 +1,18 @@
 """Hand-rolled protobuf wire codec for the WAL's record types.
 
-The port's own copy of the part of ``etcd_tpu/wire/proto.py`` the WAL
-and its replay lanes use: the varint primitives, ``Entry``,
-``HardState`` and ``Record``, with the same fixed field emission order
-(gogoproto ``nullable=false``: every field is written, even when zero),
-so WAL files written by either package are byte-equal:
+The port's own copy of the part of ``etcd_tpu/wire/proto.py`` the WAL,
+its replay lanes, the snapshotter and the co-hosted server use: the
+varint primitives, ``Entry``, ``HardState``, ``Record``, ``Snapshot``,
+``ConfChange``, ``SnapPb`` and the multi-group ``GroupEntry`` envelope,
+with the same fixed field emission order (gogoproto ``nullable=false``:
+every field is written, even when zero), so WAL and snapshot files
+written by either package are byte-equal:
 
 - ``Entry``      reference raft/raftpb/raft.proto:16-21
 - ``HardState``  raft.proto:44-48
 - ``Record``     wal/walpb/record.proto:10-14
+- ``Snapshot``   raft.proto:23-29
+- ``SnapPb``     snap/snappb/snap.proto
 
 Unmarshaling is a permissive field-number dispatch (any order, unknown
 fields skipped), matching the generated Unmarshal functions.
@@ -16,7 +20,7 @@ fields skipped), matching the generated Unmarshal functions.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 _MASK64 = (1 << 64) - 1
 
@@ -119,6 +123,10 @@ def _tagged_bytes(buf: bytearray, tag: int, b: bytes) -> None:
 
 
 ENTRY_NORMAL = 0
+ENTRY_CONF_CHANGE = 1
+
+CONF_CHANGE_ADD_NODE = 0
+CONF_CHANGE_REMOVE_NODE = 1
 
 
 # ---------------------------------------------------------------------------
@@ -239,3 +247,212 @@ class Record:
             else:
                 pos = _skip_field(data, pos, wt)
         return r
+
+
+@dataclass(slots=True)
+class Snapshot:
+    data: bytes = b""
+    nodes: list[int] = field(default_factory=list)
+    index: int = 0
+    term: int = 0
+    removed_nodes: list[int] = field(default_factory=list)
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_bytes(buf, 0x0A, self.data)
+        for n in self.nodes:
+            _tagged_varint(buf, 0x10, n)
+        _tagged_varint(buf, 0x18, self.index)
+        _tagged_varint(buf, 0x20, self.term)
+        for n in self.removed_nodes:
+            _tagged_varint(buf, 0x28, n)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Snapshot":
+        s = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 2)
+                s.data, pos = _bytes_field(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                s.nodes.append(v)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 0)
+                s.index, pos = uvarint(data, pos)
+            elif fnum == 4:
+                _expect_wt(fnum, wt, 0)
+                s.term, pos = uvarint(data, pos)
+            elif fnum == 5:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                s.removed_nodes.append(v)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return s
+
+    def clone(self) -> "Snapshot":
+        return Snapshot(self.data, list(self.nodes), self.index, self.term,
+                        list(self.removed_nodes))
+
+
+
+def is_empty_snap(sp: Snapshot) -> bool:
+    """Reference raft/node.go:79-81."""
+    return sp.index == 0
+
+
+
+@dataclass(slots=True)
+class ConfChange:
+    id: int = 0
+    type: int = CONF_CHANGE_ADD_NODE
+    node_id: int = 0
+    context: bytes = b""
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.id)
+        _tagged_varint(buf, 0x10, self.type)
+        _tagged_varint(buf, 0x18, self.node_id)
+        _tagged_bytes(buf, 0x22, self.context)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "ConfChange":
+        c = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                c.id, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                c.type, pos = uvarint(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 0)
+                c.node_id, pos = uvarint(data, pos)
+            elif fnum == 4:
+                _expect_wt(fnum, wt, 2)
+                c.context, pos = _bytes_field(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return c
+
+
+
+@dataclass(slots=True)
+class GroupEntry:
+    """Multi-group WAL envelope (new work — no reference counterpart:
+    the reference runs ONE raft group per process, so its WAL needs no
+    group axis; the co-hosted server multiplexes G groups into one
+    record stream, keeping file count O(1) and the whole log
+    replayable as a single device batch).
+
+    ``kind``: 0 = a group's log entry (payload = marshaled Request),
+    1 = commit-frontier marker (payload = the [G] i32-LE commit vector
+    followed by the [G] i32-LE term-at-commit vector).
+    """
+
+    kind: int = 0
+    group: int = 0
+    gindex: int = 0
+    gterm: int = 0
+    payload: bytes | None = None
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.kind)
+        _tagged_varint(buf, 0x10, self.group)
+        _tagged_varint(buf, 0x18, self.gindex)
+        _tagged_varint(buf, 0x20, self.gterm)
+        if self.payload is not None:
+            _tagged_bytes(buf, 0x2A, self.payload)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "GroupEntry":
+        ge = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                ge.kind, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                ge.group, pos = uvarint(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 0)
+                ge.gindex, pos = uvarint(data, pos)
+            elif fnum == 4:
+                _expect_wt(fnum, wt, 0)
+                ge.gterm, pos = uvarint(data, pos)
+            elif fnum == 5:
+                _expect_wt(fnum, wt, 2)
+                ge.payload, pos = _bytes_field(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return ge
+
+
+def marshal_group_entries(kind: int, groups, gindexes, gterms,
+                          payloads) -> list[bytes]:
+    """Batch-marshal GroupEntry envelopes without constructing the
+    dataclass per record (the serving loop's WAL record builder runs
+    this for every entry of every group in a frame, which hoists
+    the per-record object churn out of that hot loop).  Byte-
+    identical to ``GroupEntry(...).marshal()`` element-wise: all four
+    varint fields are always written and a payload is written iff it
+    is not None (``b""`` included)."""
+    out = []
+    for g, gi, gt, p in zip(groups, gindexes, gterms, payloads):
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, kind)
+        _tagged_varint(buf, 0x10, g)
+        _tagged_varint(buf, 0x18, gi)
+        _tagged_varint(buf, 0x20, gt)
+        if p is not None:
+            _tagged_bytes(buf, 0x2A, p)
+        out.append(bytes(buf))
+    return out
+
+
+
+@dataclass(slots=True)
+class SnapPb:
+    """Snapshot file wrapper (reference snap/snappb/snap.proto).
+
+    ``data=None`` omits field 2, mirroring snap.pb.go:165.
+    """
+
+    crc: int = 0
+    data: bytes | None = None
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.crc)
+        if self.data is not None:
+            _tagged_bytes(buf, 0x12, self.data)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "SnapPb":
+        s = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                s.crc, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 2)
+                s.data, pos = _bytes_field(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return s

@@ -1,0 +1,190 @@
+"""Request/Info wire types (reference etcdserver/etcdserverpb/
+etcdserver.proto) — the payload of every replicated log entry.
+
+``prev_exist`` is the only nullable field (a *bool in the reference):
+None omits field 8 entirely, matching the generated marshaler.
+Int64 fields (expiration, time) are encoded as their two's-complement
+uint64 varints, as protobuf requires.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .proto import (
+    ProtoError,
+    _bytes_field,
+    _expect_wt,
+    _skip_field,
+    _tagged_varint,
+    put_uvarint,
+    uvarint,
+)
+
+_MASK64 = (1 << 64) - 1
+
+
+def _to_i64(u: int) -> int:
+    """uint64 wire value -> python int with int64 semantics."""
+    return u - (1 << 64) if u >= (1 << 63) else u
+
+
+def _tagged_string(buf: bytearray, tag: int, s: str) -> None:
+    b = s.encode()
+    buf.append(tag)
+    put_uvarint(buf, len(b))
+    buf.extend(b)
+
+
+def _string_field(data: bytes, pos: int) -> tuple[str, int]:
+    """Length-delimited utf-8 field; a non-utf-8 blob fails typed as
+    ProtoError, never an escaping UnicodeDecodeError (these payloads
+    arrive over the FWD_REQ handoff and out of the WAL)."""
+    b, pos = _bytes_field(data, pos)
+    try:
+        return b.decode(), pos
+    except UnicodeDecodeError:
+        raise ProtoError("string field not utf-8") from None
+
+
+@dataclass(slots=True)
+class Request:
+    id: int = 0
+    method: str = ""
+    path: str = ""
+    val: str = ""
+    dir: bool = False
+    prev_value: str = ""
+    prev_index: int = 0
+    prev_exist: bool | None = None
+    expiration: int = 0  # unix nanos
+    wait: bool = False
+    since: int = 0
+    recursive: bool = False
+    sorted: bool = False
+    quorum: bool = False
+    time: int = 0  # unix nanos
+    stream: bool = False
+    # LOCAL-ONLY (never marshaled): reads don't enter the log, so
+    # the serializable opt-out (the consistency knob) stays a
+    # process-local routing hint — adding it to the wire form would
+    # perturb every persisted entry's bytes for a field no replica
+    # ever needs.
+    serializable: bool = False
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.id)
+        _tagged_string(buf, 0x12, self.method)
+        _tagged_string(buf, 0x1A, self.path)
+        _tagged_string(buf, 0x22, self.val)
+        _tagged_varint(buf, 0x28, 1 if self.dir else 0)
+        _tagged_string(buf, 0x32, self.prev_value)
+        _tagged_varint(buf, 0x38, self.prev_index)
+        if self.prev_exist is not None:
+            _tagged_varint(buf, 0x40, 1 if self.prev_exist else 0)
+        _tagged_varint(buf, 0x48, self.expiration & _MASK64)
+        _tagged_varint(buf, 0x50, 1 if self.wait else 0)
+        _tagged_varint(buf, 0x58, self.since)
+        _tagged_varint(buf, 0x60, 1 if self.recursive else 0)
+        _tagged_varint(buf, 0x68, 1 if self.sorted else 0)
+        _tagged_varint(buf, 0x70, 1 if self.quorum else 0)
+        _tagged_varint(buf, 0x78, self.time & _MASK64)
+        buf.append(0x80)
+        buf.append(0x01)
+        put_uvarint(buf, 1 if self.stream else 0)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Request":
+        r = cls()
+        pos = 0
+        while pos < len(data):
+            tag, pos = uvarint(data, pos)
+            fnum, wt = tag >> 3, tag & 7
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                r.id, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 2)
+                r.method, pos = _string_field(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 2)
+                r.path, pos = _string_field(data, pos)
+            elif fnum == 4:
+                _expect_wt(fnum, wt, 2)
+                r.val, pos = _string_field(data, pos)
+            elif fnum == 5:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.dir = bool(v)
+            elif fnum == 6:
+                _expect_wt(fnum, wt, 2)
+                r.prev_value, pos = _string_field(data, pos)
+            elif fnum == 7:
+                _expect_wt(fnum, wt, 0)
+                r.prev_index, pos = uvarint(data, pos)
+            elif fnum == 8:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.prev_exist = bool(v)
+            elif fnum == 9:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.expiration = _to_i64(v)
+            elif fnum == 10:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.wait = bool(v)
+            elif fnum == 11:
+                _expect_wt(fnum, wt, 0)
+                r.since, pos = uvarint(data, pos)
+            elif fnum == 12:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.recursive = bool(v)
+            elif fnum == 13:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.sorted = bool(v)
+            elif fnum == 14:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.quorum = bool(v)
+            elif fnum == 15:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.time = _to_i64(v)
+            elif fnum == 16:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                r.stream = bool(v)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return r
+
+
+@dataclass(slots=True)
+class Info:
+    """WAL metadata payload (etcdserver.proto:30-32)."""
+
+    id: int = 0
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.id)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Info":
+        info = cls()
+        pos = 0
+        while pos < len(data):
+            tag, pos = uvarint(data, pos)
+            fnum, wt = tag >> 3, tag & 7
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                info.id, pos = uvarint(data, pos)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return info
