@@ -41,7 +41,9 @@ slabs).  Then it drives four paths at full size:
    whose docstring has the shapes): the ``MultiRaft`` engine at 100,000
    groups x 5 members (BASELINE config 4), held equal field for field to
    the same calls on the CPU; ``MultiGroupServer`` at 10,000 x 5 serving
-   PUTs from 8 client threads, reads, a CAS, a DELETE and a watch; a
+   PUTs from 8 client threads with its default ``snap_count``, so that a
+   snapshot cuts the WAL under the load, then a profiled burst that must
+   record the engine's kernels, reads, a CAS, a DELETE and a watch; a
    restart data dir (GroupEntry records over 10,000 groups, >= 8 MiB of
    WAL, a snapshot store of >= 4 MiB) restarted under
    ``--storage-backend`` host, tpu and auto, which must agree, tpu
@@ -69,8 +71,15 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-import torch
+# Left alone, torch.profiler keeps CUPTI between sessions, and then a
+# session often records none of the kernels that another thread (the
+# co-hosted server's loop) launches, though it records that thread's
+# copies; torn down after each session, every session records them
+# (etcd_tpu_torch/scripts/profiler_sessions.py measures both).
+os.environ["TEARDOWN_CUPTI"] = "1"
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -623,22 +632,26 @@ def cohosted(rng, card: str) -> dict:
           f"({time.perf_counter() - t0} s on the CPU)", flush=True)
     del eng, ref
 
-    # 10. the server in process at config 4's width
+    # 10. the server in process at config 4's width, its default
+    # snap_count: a snapshot cuts the WAL during the load
     sv = cohosted_bench.serving(g=SERVE_G, m=M, cap=1024, puts=SERVE_PUTS,
                                 threads=SERVE_THREADS)
+    check(sv["snapshots"] >= 1, "no snapshot during the serving load")
     pr = sv["profile"]
     print(f"serving {SERVE_G} x {M} cap 1024 ({sv['state_bytes']} B of "
           f"engine state): start {sv['start_s']} s; {SERVE_PUTS} PUTs from "
           f"{SERVE_THREADS} threads in {sv['load_s']} s = "
           f"{sv['acked_writes_per_s']} acked writes/s, p50 {sv['p50_ms']} "
-          f"ms, p99 {sv['p99_ms']} ms, {sv['rounds']} persisted rounds; "
-          f"every key read back, CAS, DELETE and a watch held [{card}]",
-          flush=True)
+          f"ms, p99 {sv['p99_ms']} ms, max {sv['max_ms']} ms, "
+          f"{sv['rounds']} persisted rounds, {sv['snapshots']} snapshot(s) "
+          f"under the load ({sv['snapshot_s']} s, snap_count "
+          f"{sv['snap_count']}); every key read back after the cut, CAS, "
+          f"DELETE and a watch held [{card}]", flush=True)
     print(f"serving time: consensus-round stage {sv['round_stage_s']} s, "
           f"persist {sv['persist_s']} s, apply {sv['apply_s']} s, the rest "
           f"of the loop {sv['other_s']} s; the WAL's host CRC "
           f"({'google_crc32c' if sv['crc_fast_path'] else 'pure Python'}) "
-          f"over the load's {sv['wal_bytes']} B re-run alone: "
+          f"over the load's {sv['crc_bytes']} B of records re-run alone: "
           f"{sv['wal_crc_s']} s; {sv['syncs_per_round']} host syncs per "
           f"round; profiled burst: {pr['rounds']} rounds, "
           f"{pr['launches_per_round']} kernel launches per round, idle "

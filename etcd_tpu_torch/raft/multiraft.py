@@ -32,8 +32,8 @@ Two translations differ in form from the reference, not in result:
   every write in it is masked by ``needs_snap`` or by the lanes that
   installed, so a round where no lane needs a snapshot leaves the state
   as the skipped branch would (given the engine's invariant that
-  ``nmembers`` counts ``members``).  ``snap_branch=True`` selects the
-  branching form, which the tests hold equal to the masked one.
+  ``nmembers`` counts ``members``).  The tests hold it equal to the
+  reference's branch.
 - ``jax.lax.fori_loop`` over rounds becomes a Python loop whose carries
   (the commit total and the error lanes) stay on the card; only the
   commit total is read back, once, at the end of the train.
@@ -109,8 +109,7 @@ def _install_snapshot(lst: GroupState, pst: GroupState, nxt, needs_snap,
     return pst, nxt, lst._replace(next_=upd.next_, match=upd.match)
 
 
-def _round_core(states, sels, n_new, drop, e: int, slots,
-                snap_branch: bool = False):
+def _round_core(states, sels, n_new, drop, e: int, slots):
     """The propose->replicate->respond->commit round body, parametric in
     which member slots participate as leaders.
 
@@ -122,9 +121,6 @@ def _round_core(states, sels, n_new, drop, e: int, slots,
     slot with an all-False ``sel`` contributes nothing: every
     send/append/response in its pair iterations is masked by ``sel``,
     and ``maybe_commit`` on a non-addressed state is a fixed point).
-
-    ``snap_branch``: run the snapshot install only when some lane needs
-    it (one host sync per pair) instead of masked every time.
     """
     states = list(states)
     m = len(states)
@@ -180,9 +176,8 @@ def _round_core(states, sels, n_new, drop, e: int, slots,
             # send a snapshot instead (module docstring: masked, not
             # branched)
             needs_snap = send & (nxt <= lst.offset) & (lst.offset > 0)
-            if not snap_branch or bool(needs_snap.any()):
-                pst, nxt, lst = _install_snapshot(
-                    lst, pst, nxt, needs_snap, drop, slot, peer)
+            pst, nxt, lst = _install_snapshot(
+                lst, pst, nxt, needs_snap, drop, slot, peer)
 
             prev_idx = nxt - 1
             prev_term = term_at(lst.log_term, lst.offset, lst.last,

@@ -1,10 +1,7 @@
 """The co-hosted serving path at full width, phase by phase.
 
-    python -m etcd_tpu_torch.scripts.cohosted_bench [engine|serving|restart|cli ...]
-
-Four phases, each a function that ``chip_smoke.py`` calls and holds (run
-alone, the script runs the named phases, or all four, on CUDA and
-prints one JSON line each):
+Four phases, each a function that ``chip_smoke.py`` (their only driver)
+calls and holds:
 
 - :func:`engine`: ``MultiRaft(g=100_000, m=5, cap=64)``, BASELINE config
   4 in the shape of the reference's ``bench.py:bench_group_latency``:
@@ -19,10 +16,10 @@ prints one JSON line each):
   threads through ``do()`` (acked writes/s, p50/p99 ms), a profiled
   burst (launches and host syncs per round, idle share), every key read
   back, one CAS, one DELETE, one watch that fires, and the share of the
-  WAL persist spent in the host CRC of its records.  Its ``snap_count``
-  is set above the run's entries (the bootstrap's G empty entries
-  alone reach the default of 10,000), so no snapshot cuts the WAL
-  segment whose records the CRC is re-run on.
+  WAL persist spent in the host CRC of its records.  It keeps the
+  server's default ``snap_count``: at 10,000 groups the bootstrap's
+  empty entries alone reach it, so a snapshot (store save, hash, WAL
+  cut) lands inside the load and its stall inside the write latencies.
 - :func:`write_restart_dir` and :func:`restart`: a data dir in the
   layout of the reference's ``bench.py:bench_restart`` (GroupEntry
   records over 10,000 groups, at least 8 MiB of WAL, chained with the
@@ -38,6 +35,7 @@ and its sizes, so the tests run them on the CPU at a small size.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
@@ -68,6 +66,7 @@ from ..ops.crc_kernel import auto_crc32c, device_hash_wins
 from ..raft.batched import GroupState
 from ..raft.multiraft import MultiRaft
 from ..server.multigroup import MultiGroupServer
+from ..server.server import DEFAULT_SNAP_COUNT
 from ..snap import Snapshotter
 from ..store import Store
 from ..wal import WAL
@@ -93,7 +92,10 @@ def _sync(dev: torch.device) -> None:
 def profile_calls(fn, reps: int, dev: torch.device) -> dict:
     """``reps`` calls of ``fn`` under ``torch.profiler``: wall and device
     busy ms per call, the idle share, and CUDA kernel launches per call
-    (kernels only; copies and memsets counted apart)."""
+    (kernels only; copies and memsets counted apart).  Kernels that
+    another thread launches are recorded only with ``TEARDOWN_CUPTI=1``
+    in the environment, as ``chip_smoke.py`` sets it
+    (``scripts/profiler_sessions.py``)."""
     from torch.profiler import ProfilerActivity, profile
 
     _sync(dev)
@@ -198,19 +200,37 @@ def _ledger_totals() -> dict:
 _STAGES = ("mg.consensus_round", "mg.persist", "mg.apply")
 
 
-def _record_crc_seconds(seg: str, start: int, size: int) -> float:
-    """Seconds the WAL encoder's host CRC (``crc/crc32c.py``, chained
-    record by record) takes over the records written to ``seg`` from
-    byte ``start`` on, re-run after the fact on the same bytes."""
-    with open(seg, "rb") as f:
-        f.seek(start)
-        tail = f.read(size)
-    _, _, doff, dlen, *_ = native.wal_scan(np.frombuffer(tail, np.uint8))
+@contextlib.contextmanager
+def _crc_inputs():
+    """Collects every buffer the host CRC digests while open: the WAL
+    encoder's records, across cuts (``Digest.write`` wrapped)."""
+    seen: list = []
+    write = crc32c.Digest.write
+
+    def capture(self, data):
+        seen.append(data)
+        write(self, data)
+
+    crc32c.Digest.write = capture
+    try:
+        yield seen
+    finally:
+        crc32c.Digest.write = write
+
+
+def _crc_seconds(bufs: list) -> float:
+    """Seconds the host CRC (``crc/crc32c.py``) takes to chain ``bufs``
+    again, alone."""
     chain = 0
     t0 = time.perf_counter()
-    for o, n in zip(doff.tolist(), dlen.tolist()):
-        chain = crc32c.update(chain, tail[o:o + n])
+    for b in bufs:
+        chain = crc32c.update(chain, b)
     return time.perf_counter() - t0
+
+
+def _span(name: str) -> tuple[float, int]:
+    h = registry.histogram("etcd_span_seconds", span=name)
+    return h.sum, h.count
 
 
 def _wal_bytes(d: str) -> int:
@@ -257,17 +277,18 @@ def _load(s: MultiGroupServer, keys: list[str], threads: int,
 
 def serving(g: int = 10_000, m: int = 5, cap: int = 1024,
             puts: int = 2000, threads: int = 8, profiled: int = 200,
-            device=None, data_dir: str | None = None,
-            timeout: float = 120.0) -> dict:
+            snap_count: int = DEFAULT_SNAP_COUNT, device=None,
+            data_dir: str | None = None, timeout: float = 120.0) -> dict:
     """The in-process server at config 4's width (module docstring).
-    Raises on any failed write, read-back, CAS, DELETE or watch."""
+    Raises on any failed write, read-back, CAS, DELETE or watch, and on
+    a profiled burst in which the profiler records no kernel."""
     dev = default_device(device)
     own = data_dir is None
     d = data_dir or tempfile.mkdtemp(prefix="cohosted_serving_")
     try:
         t0 = time.perf_counter()
         s = MultiGroupServer(d, g=g, m=m, cap=cap, device=dev,
-                             snap_count=2 * (g + puts + 2 * profiled) + 100)
+                             snap_count=snap_count)
         init_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         s.start()
@@ -276,47 +297,39 @@ def serving(g: int = 10_000, m: int = 5, cap: int = 1024,
             state_bytes = sum(t.numel() * t.element_size()
                               for st in s.mr.states for t in st)
             keys = [f"/ns{i}/k" for i in range(puts)]
-            seg = s.wal._fpath
-            wal0 = os.path.getsize(seg)
             stages0 = {st: _stage_sum(st) for st in _STAGES}
-            wall, lats = _load(s, keys, threads, timeout)
+            snap0 = _span("mg.snapshot")
+            with _crc_inputs() as crc_bufs:
+                wall, lats = _load(s, keys, threads, timeout)
+            snap1 = _span("mg.snapshot")
             stages1 = {st: _stage_sum(st) for st in _STAGES}
-            if s.wal._fpath != seg:
-                raise RuntimeError("serving: the WAL was cut during the "
-                                   "load")
-            wal_written = os.path.getsize(seg) - wal0
-            crc_s = _record_crc_seconds(seg, wal0, wal_written)
+            crc_s = _crc_seconds(crc_bufs)
             lats.sort()
 
-            # a profiled burst: launches and host syncs per round.  In a
-            # process that profiled before, torch.profiler has been seen
-            # to record none of the server thread's kernels; such a
-            # burst is profiled once more, then reported as not seen.
-            bursts: list[str] = []
-            for attempt in range(2):
-                burst = [f"/burst{attempt}.{i}/k" for i in range(profiled)]
-                bursts += burst
-                tot0 = _ledger_totals()
-                if dev.type == "cuda":
-                    prof = profile_calls(
-                        lambda: _load(s, burst, threads, timeout), 1, dev)
-                else:
-                    _load(s, burst, threads, timeout)
-                    prof = None
-                tot1 = _ledger_totals()
-                rounds = tot1["rounds"] - tot0["rounds"]
-                if prof is None or prof["launches_per_call"]:
-                    break
+            # a profiled burst: launches and host syncs per round
+            burst = [f"/burst{i}/k" for i in range(profiled)]
+            tot0 = _ledger_totals()
+            if dev.type == "cuda":
+                prof = profile_calls(
+                    lambda: _load(s, burst, threads, timeout), 1, dev)
+            else:
+                _load(s, burst, threads, timeout)
+                prof = None
+            tot1 = _ledger_totals()
+            rounds = tot1["rounds"] - tot0["rounds"]
             if prof is not None:
-                seen = prof["launches_per_call"] > 0 and rounds > 0
+                if not prof["launches_per_call"] or not rounds:
+                    raise RuntimeError(
+                        f"serving: the profiled burst recorded "
+                        f"{prof['launches_per_call']} kernels over "
+                        f"{rounds} rounds")
                 prof["rounds"] = rounds
-                prof["launches_per_round"] = (
-                    prof["launches_per_call"] / rounds if seen else None)
-                if not seen:
-                    prof["idle_share"] = None
+                prof["launches_per_round"] = \
+                    prof["launches_per_call"] / rounds
 
-            # every key reads back; CAS, DELETE and a watch
-            for k in keys + bursts:
+            # every key reads back, after the snapshot's cut too; CAS,
+            # DELETE and a watch
+            for k in keys + burst:
                 ev = s.do(Request(id=1 + len(k), method="GET", path=k)).event
                 if ev.node.value != k:
                     raise RuntimeError(f"serving: {k} read back "
@@ -342,16 +355,19 @@ def serving(g: int = 10_000, m: int = 5, cap: int = 1024,
         persist_s = spent["mg.persist"]
         return {
             "g": g, "m": m, "cap": cap, "puts": puts, "threads": threads,
-            "init_s": init_s, "start_s": start_s,
+            "snap_count": snap_count, "init_s": init_s, "start_s": start_s,
             "state_bytes": state_bytes, "load_s": wall,
             "acked_writes_per_s": puts / wall,
             "p50_ms": lats[len(lats) // 2],
             "p99_ms": lats[min(len(lats) - 1, int(len(lats) * 0.99))],
+            "max_ms": lats[-1],
+            "snapshots": snap1[1] - snap0[1],
+            "snapshot_s": snap1[0] - snap0[0],
             "rounds": stages1["mg.persist"][1] - stages0["mg.persist"][1],
             "round_stage_s": spent["mg.consensus_round"],
             "apply_s": spent["mg.apply"], "persist_s": persist_s,
             "other_s": wall - sum(spent.values()),
-            "wal_bytes": wal_written, "wal_crc_s": crc_s,
+            "crc_bytes": sum(len(b) for b in crc_bufs), "wal_crc_s": crc_s,
             "wal_crc_share_of_persist": crc_s / persist_s if persist_s else
             None, "crc_fast_path": crc32c._gcrc is not None,
             "syncs_per_round": (tot1["fetches"] - tot0["fetches"]) / rounds
@@ -610,49 +626,3 @@ def cli(g: int = 10_000, m: int = 5, keys: int = 8, device: str | None = None,
                 "put_ms": lats, "keys": keys, "exit_codes": [rc1, rc2]}
     finally:
         shutil.rmtree(d, ignore_errors=True)
-
-
-def _jsonable(x):
-    if isinstance(x, np.ndarray):
-        return x.tolist() if x.size <= 16 else f"<{x.shape} {x.dtype}>"
-    if isinstance(x, dict):
-        return {k: _jsonable(v) for k, v in x.items()
-                if k not in ("states", "store", "server")}
-    if isinstance(x, (list, tuple)):
-        return [_jsonable(v) for v in x]
-    if isinstance(x, (np.integer, np.floating)):
-        return x.item()
-    return x
-
-
-def main(argv: list[str]) -> int:
-    phases = argv or ["engine", "serving", "restart", "cli"]
-    for ph in phases:
-        if ph == "engine":
-            out = engine()
-        elif ph == "serving":
-            out = serving()
-        elif ph == "restart":
-            d = tempfile.mkdtemp(prefix="cohosted_dir_")
-            try:
-                src = os.path.join(d, "data")
-                made = write_restart_dir(src)
-                out = {"dir": {k: v for k, v in made.items()
-                               if not k.endswith("keys")
-                               and k != "snap_key_sample"},
-                       "snapshot_load": snapshot_load(src),
-                       "restarts": [restart(src, b, records=made["records"])
-                                    for b in ("host", "tpu", "auto")]}
-            finally:
-                shutil.rmtree(d, ignore_errors=True)
-        elif ph == "cli":
-            out = cli()
-        else:
-            print(f"unknown phase {ph!r}", file=sys.stderr)
-            return 2
-        print(json.dumps({"phase": ph, **_jsonable(out)}), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))

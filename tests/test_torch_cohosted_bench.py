@@ -2,16 +2,17 @@
 (``etcd_tpu_torch.scripts.cohosted_bench``), on the CPU at a small size:
 the engine's call sequence and its checks (the engine itself is held
 against the JAX package's in tests/test_torch_multiraft.py); the
-serving phase's writes, reads, CAS, DELETE and watch; and the restart
+serving phase's writes (with snapshots cutting the WAL under the load),
+reads, CAS, DELETE and watch; and the restart
 dir under the three backends, which must agree and read every window
-key back.  Tolerance: exact."""
+key back; and the profiler-session probe.  Tolerance: exact."""
 
 import os
 
 import numpy as np
 import pytest
 
-from etcd_tpu_torch.scripts import cohosted_bench as cb
+from etcd_tpu_torch.scripts import cohosted_bench as cb, profiler_sessions
 
 
 def test_engine_sequence_commits_every_round():
@@ -32,11 +33,15 @@ def test_engine_states_compare_field_by_field():
 
 
 def test_serving_phase_on_the_cpu(tmp_path):
+    """A ``snap_count`` under the load's entries, so snapshots cut the
+    WAL during the load, as the default does at 10,000 groups."""
     out = cb.serving(g=32, m=5, cap=128, puts=96, threads=4, profiled=16,
-                     device="cpu", data_dir=str(tmp_path / "d"))
+                     snap_count=40, device="cpu",
+                     data_dir=str(tmp_path / "d"))
     assert out["acked_writes_per_s"] > 0
-    assert out["p99_ms"] >= out["p50_ms"] > 0
-    assert out["rounds"] > 0 and out["wal_bytes"] > 0
+    assert out["max_ms"] >= out["p99_ms"] >= out["p50_ms"] > 0
+    assert out["snapshots"] >= 1 and out["snapshot_s"] > 0
+    assert out["rounds"] > 0 and out["crc_bytes"] > 0
     assert out["syncs_per_round"] >= 1
     assert out["wal_crc_s"] > 0 and out["persist_s"] > 0
     assert out["other_s"] < out["load_s"]
@@ -82,3 +87,12 @@ def test_snapshot_load_phase(restart_dir):
     out = cb.snapshot_load(d, device="cpu")
     assert out["bytes"] > 200 * 24
     assert out["launches"] == 0  # the CPU never reaches the kernel
+
+
+def test_profiler_sessions_probe_on_the_cpu():
+    """The probe behind chip_smoke.py's TEARDOWN_CUPTI: sessions opened
+    while a server thread serves writers; the CPU records no kernel."""
+    out = profiler_sessions.main(sessions=2, g=8, m=3, cap=64,
+                                 window_s=0.05, writers=2, device="cpu")
+    assert out["sessions"] == 2
+    assert out["without_kernels"] == 2 and out["kernels"] == [0, 0]

@@ -10,9 +10,10 @@ Every scenario of tests/test_multiraft_hot.py runs the same way (the
 hot-slot round against the general one, mixed routing, reject repair,
 overflow lanes).  Tolerance: exact (integer state).  The scenarios
 share two shapes (M=3: G=8, cap 64; M=5: G=16, cap 32, the walk's)
-and one train length (3), so the JAX side compiles each program once.  A seeded random walk mixes every operation, and the
-masked snapshot install is held equal to the reference's branch on
-``needs_snap.any()``.
+and one train length (3), so the JAX side compiles each program once.  A
+seeded random walk mixes every operation, and the port's round, whose
+snapshot install is masked, is held equal to the reference's round,
+whose install is a branch on ``needs_snap.any()``.
 """
 
 import numpy as np
@@ -21,7 +22,8 @@ import torch
 
 import jax.numpy as jnp
 
-from etcd_tpu.raft.batched import LEADER
+from etcd_tpu.raft import multiraft as jmr
+from etcd_tpu.raft.batched import LEADER, GroupState as JGroupState
 from etcd_tpu.raft.multiraft import MultiRaft as JMultiRaft
 
 from etcd_tpu_torch.raft import multiraft as tmr
@@ -559,16 +561,21 @@ def test_random_walk_equal(seed):
     assert mr.calls >= 40
 
 
-# -- the masked snapshot install equals the branching form ------------------
+# -- the masked snapshot install equals the reference's branch -------------
 
 def _lagging_states(install: bool):
-    """A port engine where follower 2 lags behind leader 0; with
-    ``install`` the leader has compacted past it, so some lanes need a
-    snapshot in the next round."""
-    mr = TMultiRaft(g=8, m=3, cap=32, device="cpu")
+    """A port engine, compacted once, where follower 2 lags leader 0 by
+    more than one append window on the even lanes; with ``install`` the
+    leader has compacted again, past the lagging follower, so those
+    lanes need a snapshot in the next round."""
+    mr = TMultiRaft(g=8, m=3, cap=64, device="cpu")
     mr.campaign(0)
+    mr.propose(np.full(8, 10, np.int32))
+    mr.replicate()
+    mr.mark_applied(mr.commit_index())
+    mr.compact()
     drop = {(0, 2): np.arange(8) % 2 == 0}
-    mr.propose(np.full(8, 5, np.int32), drop=drop)
+    mr.propose(np.full(8, 12, np.int32), drop=drop)
     mr.replicate(drop=drop)
     if install:
         mr.mark_applied(mr.commit_index())
@@ -576,9 +583,20 @@ def _lagging_states(install: bool):
     return mr
 
 
+def _to_jax(st):
+    return JGroupState(**{f: jnp.asarray(getattr(st, f).numpy())
+                          for f in st._fields})
+
+
+@pytest.mark.parametrize("acks_dropped", [False, True])
 @pytest.mark.parametrize("install", [False, True])
 @pytest.mark.parametrize("general", [False, True])
-def test_masked_install_equals_branch(install, general):
+def test_masked_install_equals_branch(install, general, acks_dropped):
+    """The port's round, which runs the install masked every time, equals
+    the reference's ``_round_core`` (the install under ``lax.cond`` on
+    ``needs_snap.any()``) on the same lagging states, field for field,
+    in a round that installs a snapshot and in one that does not, with
+    and without follower 2's acks dropped on some lanes."""
     mr = _lagging_states(install)
     lst, fol = mr.states[0], mr.states[2]
     nxt = lst.next_[:, 2]
@@ -589,17 +607,25 @@ def test_masked_install_equals_branch(install, general):
     sels = [sel, torch.zeros_like(sel), torch.zeros_like(sel)] \
         if general else [sel]
     n_new = torch.ones(8, dtype=torch.int32)
-    outs = [tmr._round_core(tuple(mr.states), sels, n_new, mr._no_drop,
-                            mr.e, slots, snap_branch=b)
-            for b in (False, True)]
-    (sa, *ra), (sb, *rb) = outs
-    for x, y in zip(ra, rb):
-        assert torch.equal(x, y)
-    for a, b in zip(sa, sb):
+    drop = mr._drop({(2, 0): np.arange(8) % 4 == 0} if acks_dropped
+                    else None)
+    st, *rest = tmr._round_core(tuple(mr.states), sels, n_new, drop,
+                                mr.e, slots)
+    jst, *jrest = jmr._round_core(
+        tuple(_to_jax(x) for x in mr.states),
+        [jnp.asarray(x.numpy()) for x in sels], jnp.asarray(n_new.numpy()),
+        jnp.asarray(drop.numpy()), mr.e, slots)
+    for name, x, y in zip(("newly", "valid", "base", "overflow",
+                           "conflict"), rest, jrest):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y),
+                                      err_msg=name)
+    for s, (a, b) in enumerate(zip(st, jst)):
         for f in a._fields:
-            assert torch.equal(getattr(a, f), getattr(b, f)), f
+            np.testing.assert_array_equal(
+                getattr(a, f).numpy(), np.asarray(getattr(b, f)),
+                err_msg=f"slot {s} field {f}")
     if install:
-        assert not torch.equal(sa[2].offset, fol.offset)
+        assert not torch.equal(st[2].offset, fol.offset)
 
 
 SCENARIOS = {name[3:]: fn for name, fn in sorted(globals().items())
