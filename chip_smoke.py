@@ -49,7 +49,21 @@ slabs).  Then it drives four paths at full size:
    ``--storage-backend`` host, tpu and auto, which must agree, tpu
    launching the raw-CRC kernel; and ``python -m etcd_tpu_torch.cli
    --cohosted-groups 10000`` as a subprocess, served over HTTP, killed
-   and restarted with ``--storage-backend tpu``.
+   and restarted with ``--storage-backend tpu``;
+6. the distributed tier (``etcd_tpu_torch.scripts.dist_bench.run``, whose
+   docstring has the client): three ``python -m
+   etcd_tpu_torch.scripts.dist_node`` processes on the one card (three
+   CUDA contexts, time-sliced: the numbers are the dist tier on one
+   H100, not on three machines), member slots 0-2 of 10,000 groups with
+   1024 log slots each (config 4's group count, BASELINE config 2's
+   membership), 16,000 proposals over ``/mraft/propose_many`` from 8
+   connections with windows of 512 and the reference's pipeline depth
+   of 8; every acked write read back from all three hosts; slot 2
+   SIGKILLed, 2,000 more proposals on the quorum of 2, slot 2 restarted
+   with ``--storage-backend tpu``, which must replay its WAL through the
+   raw-CRC kernel on the stream lane, catch up and read every key back.
+   The kernel is then held against its plain version at the largest
+   batch the restart launched.
 
 Each path is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Prints, on its last lines: one JSON
@@ -93,7 +107,7 @@ from etcd_tpu_torch.ops.crc_device import (  # noqa: E402
 from etcd_tpu_torch.parallel import data_plane_step  # noqa: E402
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
-    cohosted_bench, crc_variants_bench, kernel_sweep, mma_rate)
+    cohosted_bench, crc_variants_bench, dist_bench, kernel_sweep, mma_rate)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
 from etcd_tpu_torch.wal import WAL  # noqa: E402
@@ -121,6 +135,10 @@ SNAP_BYTES, SNAP_CHUNK = 1 << 30, 4 << 20
 SERVE_G, SERVE_PUTS, SERVE_THREADS = 10_000, 2000, 8
 RESTART_K_PER, RESTART_SNAP_KEYS = 20, 24_000
 BACKENDS = ("host", "tpu", "auto")
+# the distributed tier: 3 hosts x 10,000 groups x 1024 log slots,
+# bench.py's dist_cluster client (8 connections x windows of 512)
+DIST_G, DIST_CAP, DIST_TOTAL, DIST_EXTRA = 10_000, 1024, 16_000, 2_000
+DIST_CONNS, DIST_WINDOW, DIST_DEPTH, DIST_BATCH_ENTS = 8, 512, 8, 128
 
 # The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
@@ -737,6 +755,57 @@ def cohosted(rng, card: str) -> dict:
             "snapshot": k_snap, "records": records_n}
 
 
+def dist(rng, card: str) -> dict:
+    """Phase 13: the distributed tier in three processes, and the
+    raw-CRC kernel at the largest batch its restart launched.  Returns
+    the run and the kernel's numbers for the kernels line."""
+    torch.cuda.empty_cache()
+    r = dist_bench.run(groups=DIST_G, cap=DIST_CAP, total=DIST_TOTAL,
+                       conns=DIST_CONNS, window=DIST_WINDOW,
+                       extra=DIST_EXTRA, depth=DIST_DEPTH,
+                       max_batch_ents=DIST_BATCH_ENTS)
+    rs = r["restart"]
+    check(r["device"] == "cuda", f"the nodes ran on {r['device']}")
+    check(rs["lane"] == "stream", f"the tpu restart took lane {rs['lane']}")
+    check(rs["raw_crc_launches"] > 0, "the dist restart did not launch the "
+          "raw-CRC kernel")
+    for name in ("load", "load_one_down"):
+        x = r[name]
+        print(f"dist {name}: {x['acked']} of {x['proposals']} proposals "
+              f"acked in {x['seconds']} s = {x['acked_writes_per_s']} "
+              f"acked writes/s; client ack p50 {x['ack_p50_ms']} ms, p99 "
+              f"{x['ack_p99_ms']} ms; refused {x['refused']} [{card}]",
+              flush=True)
+    for slot, h in enumerate(r["hosts_stats"]):
+        print(f"dist host {slot}: applied {h['applied_per_s']} entries/s "
+              f"during the load; ack RTT p50 {h['ack_rtt_p50_ms']} ms p99 "
+              f"{h['ack_rtt_p99_ms']} ms ({h['ack_rtt_count']} samples); "
+              f"{h['rounds']} rounds ({h['leader_rounds']} leader, "
+              f"{h['frames_handled']} frames handled); "
+              f"{h['reads_per_round']} host reads of device state per "
+              f"round {h['reads_by_stage']}; leads {h['lanes_led']} lanes "
+              f"({h['odd_lanes_led']} odd); {h['campaign_lanes']} campaign "
+              f"lanes, {h['won_lanes']} won; snapshot installs "
+              f"{h['snapshot_installs']} [{card}]", flush=True)
+    h = r["restarted_host_stats"]
+    print(f"dist restart of slot 2 (--storage-backend tpu): "
+          f"{rs['seconds']} s over {rs['wal_bytes']} B of WAL, lane "
+          f"{rs['lane']}, {rs['raw_crc_launches']} raw_crc launches "
+          f"(largest batch {rs['raw_crc_largest']}), READY after "
+          f"{rs['ready_s']} s, caught up in {rs['catch_up_s']} s; "
+          f"{r['read_back']} acked keys read back from all three hosts; "
+          f"then {h['reads_per_round']} host reads per round over "
+          f"{h['rounds']} rounds, snapshot installs "
+          f"{h['snapshot_installs']} [{card}]", flush=True)
+    n, length = rs["raw_crc_largest"]
+    k = kernel_at(torch.from_numpy(records(rng, n, length)).cuda(), reps=20)
+    check(k["max_abs_err"] == 0, f"raw_crc != plain at {k['shape']}")
+    print(f"raw_crc at the dist restart's largest batch {k['shape']}: "
+          f"{k['ms']} ms, bound {k['bound_ms']} ms, plain {k['plain_ms']} "
+          f"ms [{card}]", flush=True)
+    return {"run": r, "kernel": k}
+
+
 def plain_step(buf, lens, stored, seed, state, *raft):
     """data_plane_step with the plain CRC in place of the kernel."""
     raw = crc_cuda.raw_crc_plain(buf)
@@ -932,6 +1001,8 @@ def main() -> int:
     replay, snap = recovery(rng, card)
     # 9-12. the co-hosted serving path
     served = cohosted(rng, card)
+    # 13. the distributed tier
+    dist_run = dist(rng, card)
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -1022,6 +1093,21 @@ def main() -> int:
         "snapshot_ms": served["snapshot"]["ms"],
         "snapshot_plain_ms": served["snapshot"]["plain_ms"],
         "snapshot_bound_ms": served["snapshot"]["bound_ms"]})
+    # raw_crc on the distributed tier's restart (slot 2's WAL replay on
+    # the stream lane and the snapshot load), timed at its largest batch
+    rs, k = dist_run["run"]["restart"], dist_run["kernel"]
+    kernels.append({
+        "name": "raw_crc/dist_restart", "route": "cuda",
+        "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+        "replaces": "etcd_tpu/ops/crc_pallas.py:40",
+        "launches": rs["raw_crc_launches"],
+        "max_abs_err": k["max_abs_err"], "bit_exact": k["max_abs_err"] == 0,
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
+        "library_ms": None, "design": RAW_DESIGN,
+        "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"],
+        "lane": rs["lane"], "restart_s": rs["seconds"],
+        "wal_bytes": rs["wal_bytes"]})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

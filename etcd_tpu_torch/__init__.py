@@ -9,8 +9,9 @@ ported so far:
                 torch versions), its variant formulations, chain
                 verify, quorum commit index, the snapshot hash
                 (``crc_kernel.py``)
-    raft/       the [G]-batched Raft engine (``batched.py``) and the
-                co-hosted G x M runtime on it (``multiraft.py``)
+    raft/       the [G]-batched Raft engine (``batched.py``), the
+                co-hosted G x M runtime on it (``multiraft.py``) and one
+                host's member slot of G groups (``distmember.py``)
     parallel/   the fused single-card data-plane step
     wal/        the WAL (``wal.py``), its replay lanes on the card
                 (``replay_device.py``) and their router
@@ -18,11 +19,15 @@ ported so far:
     snap/       the snapshotter and the streamed-snapshot chunk
                 verifier
     store/      the hierarchical KV store with TTLs and watches (copy)
-    server/     the co-hosted multi-group server (``multigroup.py``)
-                and the seams it shares (``server.py``)
+    server/     the co-hosted multi-group server (``multigroup.py``),
+                the distributed tier (``distserver.py`` with
+                ``distpipe.py``, ``peerlink.py``, ``readindex.py``) and
+                the seams they share (``server.py``)
     api/        the HTTP client API
-    cli.py      ``python -m etcd_tpu_torch.cli --cohosted-groups G``
-    wire/       the protobuf records and requests (copies)
+    cli.py      ``python -m etcd_tpu_torch.cli --cohosted-groups G`` or
+                ``--dist-slot N --dist-peers ...``
+    wire/       the protobuf records, requests and the dist tier's
+                frames (copies)
     utils/      errors, fsync helpers, failpoints, backoff, the wait
                 registry, the tracer, flags, TLS (copies)
     obs/        roofline accounting, a metrics registry, the device
@@ -30,7 +35,8 @@ ported so far:
     native.py   ctypes binding of ``native/walscan.cc`` (built with g++
                 at first use)
     scripts/    the raw-CRC variant race, the kernel sweep, the host
-                WAL builder, the co-hosted phases of ``chip_smoke.py``
+                WAL builder, the co-hosted and dist phases of
+                ``chip_smoke.py``, one dist host per process
     entry.py    example inputs and the entry point of that step
     csrc/       CUDA C++ sources, built with nvcc at first use
 

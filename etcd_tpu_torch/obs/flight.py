@@ -1,0 +1,311 @@
+"""Black-box flight recorder + per-proposal trace context.
+
+One bounded ring of timestamped events per server: the record path is
+a monotonic-clock read, one GIL-atomic slot assignment and a cached
+counter add — no ring-wide lock, safe on every serving thread.  The
+ring is ALWAYS ON for black-box events (elections, pipe-mode
+transitions, lease losses, fail-closed reads, snapshot install
+outcomes) and carries the head-sampled per-proposal span events the
+distributed trace rides on; overflow overwrites the oldest event and
+is accounted in ``etcd_trace_drop_total{reason="ring_overflow"}`` —
+forensics degrade to "recent history", never to unbounded memory.
+
+Trace context = ``(trace_id, origin slot)``.  ``sample_trace()``
+head-samples 1-in-N ingests (``ETCD_TRACE_SAMPLE``, 0 disables
+tracing entirely); proposals that miss the head sample still get
+TAIL capture — their slow/failed completions are recorded as
+``class="tail"`` events by the server, so the ring always holds the
+interesting outliers even at sparse sampling.
+
+Dumps (``dump()``/``dump_json()``) carry a paired wall/monotonic
+anchor and the per-stage wall/cpu/device sums, so the offline
+stitcher (scripts/trace_stitch.py) can merge rings from several
+nodes, align their clocks off symmetric peerlink send/ack pairs and
+reconstruct per-proposal timelines.  ``install_crash_dump`` arms a
+SIGTERM handler + excepthook that writes the dump to
+``trace_artifacts/`` on the way down — the crash forensics the chaos
+drill harvests.
+
+Stdlib-only by design (imported by server hot paths and by the
+SIGTERM-dump subprocess test, neither of which may pull jax/numpy).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import logging
+import os
+import sys
+import threading
+import time
+
+from .metrics import Registry, registry as default_registry
+
+log = logging.getLogger(__name__)
+
+#: default ring capacity (events); ETCD_FLIGHT_RING overrides
+DEFAULT_CAPACITY = 8192
+#: default head-sampling rate (1-in-N ingests); ETCD_TRACE_SAMPLE
+#: overrides, 0 disables per-proposal tracing
+DEFAULT_SAMPLE = 64
+#: default slow-proposal/read tail-capture threshold (seconds);
+#: ETCD_TRACE_SLOW_MS overrides
+DEFAULT_SLOW_S = 0.25
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+class FlightRecorder:
+    """Bounded event ring + trace-context sampler for ONE server.
+
+    Events are ``(mono_t, alloc_index, class, fields)`` tuples; the
+    alloc index orders them across the ring's rotation.  Slot writes
+    are plain list assignments (GIL-atomic) — a torn read can only
+    ever surface a complete older or newer event, never a partial
+    one.
+    """
+
+    def __init__(self, node: str = "", slot: int = -1,
+                 capacity: int | None = None,
+                 sample: int | None = None,
+                 registry: Registry | None = None,
+                 role: str = "server"):
+        self.node = node
+        self.slot = slot
+        # role-split topology: each role process is its own
+        # incarnation — the stitcher keys incarnations on
+        # (slot, role) so an ingest restart never shadows the shard
+        # dumps of the same slot.  Single-process servers keep the
+        # default and stitch exactly as before.
+        self.role = role
+        self.capacity = (capacity if capacity is not None
+                         else _env_int("ETCD_FLIGHT_RING",
+                                       DEFAULT_CAPACITY))
+        if self.capacity < 1:
+            raise ValueError(f"capacity {self.capacity} must be >= 1")
+        self.sample_n = (sample if sample is not None
+                         else _env_int("ETCD_TRACE_SAMPLE",
+                                       DEFAULT_SAMPLE))
+        self.slow_s = _env_int("ETCD_TRACE_SLOW_MS",
+                               int(DEFAULT_SLOW_S * 1e3)) / 1e3
+        self._reg = (registry if registry is not None
+                     else default_registry)
+        self._buf: list[tuple | None] = [None] * self.capacity
+        self._n = itertools.count()       # next() is GIL-atomic
+        self._trace_seq = itertools.count(1)
+        self._ingest_seq = itertools.count()
+        self._class_ctrs: dict[str, object] = {}
+        # drops are counted PER RECORDER (the dump's "dropped" field
+        # must describe THIS ring — co-hosted servers share the
+        # registry counter, which would report each other's wraps)
+        # and mirrored into the process-wide metric family
+        self._wrap_drops = 0
+        self._drop_ctr = self._reg.counter(
+            "etcd_trace_drop_total", reason="ring_overflow")
+
+    # -- record path ------------------------------------------------------
+
+    def record(self, cls: str, t: float | None = None,
+               **fields) -> None:
+        """Append one event (class + free-form JSON-able fields).
+        ``t`` defaults to ``time.monotonic()`` now; pass an earlier
+        stamp for events whose edge was taken before a lock."""
+        i = next(self._n)
+        if i >= self.capacity:
+            self._wrap_drops += 1
+            self._drop_ctr.inc()
+        self._buf[i % self.capacity] = (
+            t if t is not None else time.monotonic(), i, cls, fields)
+        c = self._class_ctrs.get(cls)
+        if c is None:
+            c = self._class_ctrs[cls] = self._reg.counter(
+                "etcd_flight_events_total", **{"class": cls})
+        c.inc()
+
+    def span(self, trace: int, origin: int, stage: str,
+             t: float | None = None, **fields) -> None:
+        """One per-proposal trace span event (the distributed-trace
+        unit the stitcher joins on ``(origin, trace)``)."""
+        self.record("span", t=t, trace=trace, origin=origin,
+                    stage=stage, **fields)
+
+    def sample_trace(self) -> int | None:
+        """Head sampling at client ingest: every N-th ingest gets a
+        trace id (None otherwise; N=0 disables).  The id is unique
+        per recorder; ``(origin slot, id)`` is the global key."""
+        n = self.sample_n
+        if not n:
+            return None
+        if next(self._ingest_seq) % n:
+            return None
+        return next(self._trace_seq) & 0xFFFFFFFF
+
+    # -- read side --------------------------------------------------------
+
+    def events(self) -> list[dict]:
+        """Ring contents oldest-first as JSON-able dicts (one
+        consistent-enough sweep: concurrent records may replace a
+        slot mid-scan; each slot read is still a whole event)."""
+        snap = [e for e in list(self._buf) if e is not None]
+        snap.sort(key=lambda e: e[1])
+        return [{"t": e[0], "i": e[1], "c": e[2], **e[3]}
+                for e in snap]
+
+    def dropped(self) -> int:
+        """Events THIS ring overwrote (node-scoped, unlike the
+        shared registry counter it mirrors into)."""
+        return self._wrap_drops
+
+    def dump(self) -> dict:
+        """The full node dump the stitcher consumes: events + paired
+        wall/mono clock anchor + per-stage wall/cpu/device sums."""
+        stages: dict[str, dict[str, dict]] = {}
+        try:
+            fam = self._reg.family("etcd_stage_seconds")
+            for (stage, kind), child in fam.children():
+                count, total, mx, _ = child.ring_stats()
+                stages.setdefault(stage, {})[kind] = {
+                    "sum": round(total, 6), "count": count,
+                    "max": round(mx, 6)}
+        except KeyError:  # pragma: no cover - test registries
+            pass
+        return {
+            "node": self.node, "slot": self.slot, "pid": os.getpid(),
+            "role": self.role,
+            "wall_anchor": time.time(),
+            "mono_anchor": time.monotonic(),
+            "capacity": self.capacity, "sample_n": self.sample_n,
+            "dropped": self.dropped(),
+            # the stage sums come from the PROCESS-wide registry: an
+            # in-process multi-server cluster's dumps each carry the
+            # combined table — the stitcher dedups by pid so the CPU
+            # budget is never multiplied by the co-hosted node count
+            "stages_scope": "process",
+            "stages": stages,
+            "events": self.events(),
+        }
+
+    def dump_json(self) -> bytes:
+        return (json.dumps(self.dump()) + "\n").encode()
+
+    def dump_to(self, directory: str, tag: str = "") -> str:
+        """Write the dump to ``directory`` (created if missing);
+        returns the path."""
+        os.makedirs(directory, exist_ok=True)
+        name = "flight_{}{}_{}.json".format(
+            self.node or "node", f"_{tag}" if tag else "",
+            os.getpid())
+        path = os.path.join(directory, name)
+        with open(path, "wb") as f:
+            f.write(self.dump_json())
+        return path
+
+
+def harvest_rings(urls: list[str], out_dir: str,
+                  timeout: float = 10.0) -> list[str]:
+    """Pull each node's flight ring (``GET <url>/mraft/obs/flight``)
+    into ``out_dir`` as ``flight_s{i}.json``; returns the paths
+    written (unreachable nodes are skipped — their SIGTERM/crash
+    dumps, if any, live under their own data dirs).  The one copy of
+    the harvest loop chaos_drill and dist_bench both ride."""
+    import urllib.request
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, u in enumerate(urls):
+        try:
+            with urllib.request.urlopen(u + "/mraft/obs/flight",
+                                        timeout=timeout) as r:
+                body = r.read()
+        except Exception as e:
+            log.warning("flight harvest: %s unreachable (%s)", u,
+                        type(e).__name__)
+            continue
+        # name by (slot, role) when the dump says so: a role-split
+        # host contributes several rings per slot and they must not
+        # clobber one another on disk
+        tag = f"s{i}"
+        try:
+            d = json.loads(body)
+            if d.get("role", "server") != "server":
+                tag = f"s{d.get('slot', i)}_{d['role']}"
+        except (ValueError, KeyError, TypeError):
+            pass
+        p = os.path.join(out_dir, f"flight_{tag}.json")
+        with open(p, "wb") as f:
+            f.write(body)
+        paths.append(p)
+    return paths
+
+
+def install_crash_dump(recorder: FlightRecorder,
+                       directory: str | None = None,
+                       signals: tuple[int, ...] | None = None) -> str:
+    """Arm the black-box dump on the way down: SIGTERM (the drill
+    and bench teardown signal) and any unhandled exception write the
+    flight ring to ``directory`` (default ``ETCD_FLIGHT_DIR``, else
+    ``./trace_artifacts``) before the process exits.  The previous
+    SIGTERM disposition is restored and re-raised after the dump, so
+    exit status and any chained handler behave exactly as without
+    the recorder.  Returns the dump directory."""
+    import signal as _signal
+
+    directory = (directory or os.environ.get("ETCD_FLIGHT_DIR")
+                 or "trace_artifacts")
+    done = threading.Event()  # dump at most once per process
+
+    def _write(tag: str) -> None:
+        if done.is_set():
+            return
+        done.set()
+        try:
+            path = recorder.dump_to(directory, tag=tag)
+            print(f"flight: dumped {tag} ring to {path}",
+                  file=sys.stderr, flush=True)
+        except Exception:  # pragma: no cover - disk-full last gasp
+            log.exception("flight: crash dump failed")
+
+    if signals is None:
+        signals = (_signal.SIGTERM,)
+    for sig in signals:
+        prev = _signal.getsignal(sig)
+
+        def _on_sig(signum, frame, _prev=prev):
+            _write("sigterm")
+            _signal.signal(signum, _prev if callable(_prev)
+                           else _signal.SIG_DFL)
+            _signal.raise_signal(signum)
+
+        _signal.signal(sig, _on_sig)
+
+    prev_hook = sys.excepthook
+
+    def _on_crash(exc_type, exc, tb):
+        _write("crash")
+        prev_hook(exc_type, exc, tb)
+
+    sys.excepthook = _on_crash
+
+    # sys.excepthook never fires for non-main threads — and the
+    # server's round loop, HTTP handlers and peerlink reader/writer
+    # threads are where server crashes actually happen.  Chain
+    # threading.excepthook so a dying daemon thread dumps too.
+    prev_thook = threading.excepthook
+
+    def _on_thread_crash(args):
+        if args.exc_type is not SystemExit:
+            _write("crash")
+        prev_thook(args)
+
+    threading.excepthook = _on_thread_crash
+    return directory
+
+
+__all__ = ["DEFAULT_CAPACITY", "DEFAULT_SAMPLE", "FlightRecorder",
+           "harvest_rings", "install_crash_dump"]

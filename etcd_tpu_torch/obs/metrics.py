@@ -1,7 +1,7 @@
 """A small typed metrics registry: the port's copy of the part of
 ``etcd_tpu/obs/metrics.py`` that its WAL, replay lanes, router, device
-ledger, failpoints, store, tracer and co-hosted server record into,
-under the same metric names.
+ledger, failpoints, store, tracer, co-hosted server and distributed
+tier record into, under the same metric names.
 
 Three instrument kinds, every family declared in :data:`CATALOG` with
 its labels: a typo'd name or label set raises at first record, never
@@ -12,10 +12,15 @@ makes a silent new family.
 - **Histogram**: count, sum and max of the observed values, plus a
   bounded ring of the last ``window`` samples, over which the tracer
   computes its exact percentiles (``ring_stats``).
+
+:meth:`Registry.snapshot` is the JSON view ``/mraft/obs`` serves: the
+reference's shape, with exact ring percentiles and no bucket counts
+(this registry keeps none).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 from collections import deque
 from dataclasses import dataclass
@@ -113,6 +118,81 @@ _DEFS = (
     MetricDef("etcd_watch_dispatch_seconds", "histogram",
               "Fanout engine wall time per dispatch round, by stage "
               "(match | deliver).", labels=("stage",), window=2048),
+    # the distributed tier: peer frames, the append pipeline, reads,
+    # streamed snapshots, the flight recorder
+    MetricDef("etcd_ack_rtt_seconds", "histogram",
+              "Dist-tier consensus RTT per proposal: leader append/send "
+              "-> quorum ack -> local apply.  Stamped at SEND, so client "
+              "queueing cannot pollute it (the majority-RTT model of "
+              "optimal-cluster-size.md).", window=4096),
+    MetricDef("etcd_dist_coalesce_entries", "histogram",
+              "Client proposals coalesced per drain flush (adaptive "
+              "cadence: max-entries/max-bytes threshold or the "
+              "--dist-coalesce-us timer, whichever first)."),
+    MetricDef("etcd_dist_frame_resend_total", "counter",
+              "Pipeline frames re-sent or acks dropped, by reason: "
+              "reconnect (transport died with frames in flight), reject "
+              "(follower gap -> probe catch-up), stale_seq (duplicate or "
+              "already-failed ack), stale_epoch (ack from a previous "
+              "leadership reign), closed (channel shutdown), expired "
+              "(in-flight past the ack deadline — backstop sweep).",
+              labels=("reason",)),
+    MetricDef("etcd_dist_pipeline_inflight", "gauge",
+              "Append frames currently in flight to each peer (windowed "
+              "pipeline, bounded by --dist-pipeline-depth).",
+              labels=("peer",)),
+    MetricDef('etcd_dist_pipeline_inflight_entries', 'gauge',
+              "Entries (across all group lanes) in each peer's in-flight "
+              'append window — the multi-group frame-fusion evidence: '
+              'entries-per-frame is this over '
+              'etcd_dist_pipeline_inflight.',
+              labels=('peer',)),
+    MetricDef("etcd_flight_events_total", "counter",
+              "Flight-recorder events recorded, by event class: span "
+              "(per-proposal trace span), frame (peerlink "
+              "send/recv/resp/ack edge of a traced frame), election, "
+              "pipe_mode (REPLICATE/PROBE/SNAPSHOT transition), "
+              "lease_loss, read_fail (fail-closed read), snap_install, "
+              "tail (slow/failed proposal or read captured past head "
+              "sampling).",
+              labels=("class",)),
+    MetricDef("etcd_peer_send_failures_total", "counter",
+              "Peer frames dropped after retries.",
+              labels=("path",)),
+    MetricDef("etcd_peer_send_frames_total", "counter",
+              "Peer frames POSTed (path: classic one-group sender | dist "
+              "batched [G] frames).",
+              labels=("path",)),
+    MetricDef("etcd_peer_send_seconds", "histogram",
+              "Peer POST round-trip latency.",
+              labels=("path",)),
+    MetricDef("etcd_pending_proposals", "gauge",
+              "Requeued proposals awaiting a leader or window space."),
+    MetricDef("etcd_read_index_batch_size", "histogram",
+              "Pending linearizable reads released per confirmation "
+              "sweep.", window=2048),
+    MetricDef("etcd_read_rtt_seconds", "histogram",
+              "Linearizable read round trip, stamped register -> serve "
+              "(lease serves land in the first buckets; ReadIndex serves "
+              "pay the piggybacked confirmation round).", window=4096),
+    MetricDef("etcd_snap_install_total", "counter",
+              "Snapshot install/pull attempts by outcome: ok (installed) "
+              "| no_donor (no reachable donor host) | meta_failed (meta "
+              "fetch/parse error) | not_dominating (donor frontier behind "
+              "ours) | stream_failed (chunk stream aborted) | "
+              "chunk_reject (one per corrupt chunk rejected and "
+              "refetched) | stale (dominance lost between stream and "
+              "install).",
+              labels=("outcome",)),
+    MetricDef("etcd_snap_stream_chunk_seconds", "histogram",
+              "Streamed snapshot install: receiver-side wall time per "
+              "chunk from request to verified.", window=512),
+    MetricDef("etcd_trace_drop_total", "counter",
+              "Trace/flight events dropped, by reason: ring_overflow (the "
+              "bounded ring overwrote its oldest event — size it with "
+              "ETCD_FLIGHT_RING), unsampled is NOT counted (head sampling "
+              "is a rate, not a loss).",
+              labels=("reason",)),
 )
 
 #: name -> MetricDef: the metric vocabulary
@@ -166,6 +246,30 @@ class Histogram:
         with self._lock:
             return self.count, self.sum, self.max, sorted(self._ring)
 
+    def snapshot(self, light: bool = False) -> dict:
+        """count/sum/max, plus the exact ring percentiles unless
+        ``light`` (which skips the ring sort)."""
+        with self._lock:
+            out = {"count": self.count, "sum": self.sum, "max": self.max}
+            ring = None if light else sorted(self._ring)
+        if ring is not None:
+            for key, q in (("p50", 0.5), ("p90", 0.9),
+                           ("p99", 0.99), ("p999", 0.999)):
+                out[key] = (ring[min(len(ring) - 1, int(len(ring) * q))]
+                            if ring else 0.0)
+        return out
+
+
+class _Family:
+    """One family's view: its definition and its children."""
+
+    def __init__(self, reg: "Registry", d: MetricDef):
+        self.d = d
+        self._reg = reg
+
+    def children(self) -> list[tuple[tuple[str, ...], object]]:
+        return self._reg.children(self.d.name)
+
 
 class Registry:
     """Catalog-checked accessors."""
@@ -205,6 +309,35 @@ class Registry:
         with self._lock:
             for k in [k for k in self._children if k[0] == name]:
                 del self._children[k]
+
+    def family(self, name: str) -> _Family:
+        """Family ``name`` (``KeyError`` when it is not in the
+        catalog)."""
+        return _Family(self, self._catalog[name])
+
+    def snapshot(self, light: bool = False) -> dict:
+        """JSON-ready view of every recorded family: kind, help and one
+        entry per labeled child."""
+        with self._lock:
+            names = sorted({k[0] for k in self._children})
+        out = {}
+        for name in names:
+            d = self._catalog[name]
+            samples = []
+            for labelvalues, child in self.children(name):
+                entry = {"labels": dict(zip(d.labels, labelvalues))}
+                if d.kind == "histogram":
+                    entry.update(child.snapshot(light=light))
+                else:
+                    entry["value"] = child.get()
+                samples.append(entry)
+            out[name] = {"kind": d.kind, "help": d.help,
+                         "samples": samples}
+        return out
+
+    def snapshot_json(self, light: bool = False) -> bytes:
+        return (json.dumps(self.snapshot(light=light), sort_keys=True)
+                + "\n").encode()
 
     def counter(self, name: str, **labels) -> Counter:
         return self._child(name, "counter", labels)

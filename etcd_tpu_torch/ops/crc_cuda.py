@@ -182,7 +182,8 @@ def raw_crc_cuda(buf: torch.Tensor, rows: int = DEFAULT_ROWS) -> torch.Tensor:
     ``1 <= L <= MAX_LENGTH``; ``rows`` is the kernel's rows per warp
     tile, one of :data:`ROWS_PER_TILE`.  Launches on the current stream
     and does not wait; adds one to ``raw_crc_cuda.launches`` and to
-    ``raw_crc_cuda.launches_by[rows]`` for each launch."""
+    ``raw_crc_cuda.launches_by[rows]`` for each launch, and keeps the
+    largest ``(N, L)`` launched in ``raw_crc_cuda.largest``."""
     if rows not in ROWS_PER_TILE:
         raise ValueError(f"raw_crc_cuda runs {ROWS_PER_TILE} rows per "
                          f"tile, not {rows!r}")
@@ -214,11 +215,14 @@ def raw_crc_cuda(buf: torch.Tensor, rows: int = DEFAULT_ROWS) -> torch.Tensor:
         raise RuntimeError(f"raw_crc kernel launch failed: cudaError {err}")
     raw_crc_cuda.launches += 1
     raw_crc_cuda.launches_by[rows] += 1
+    if n * length > raw_crc_cuda.largest[0] * raw_crc_cuda.largest[1]:
+        raw_crc_cuda.largest = (n, length)
     return out
 
 
 raw_crc_cuda.launches = 0
 raw_crc_cuda.launches_by = dict.fromkeys(ROWS_PER_TILE, 0)
+raw_crc_cuda.largest = (0, 0)
 
 
 def raw_crc_plain(buf: torch.Tensor) -> torch.Tensor:

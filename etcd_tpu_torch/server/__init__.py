@@ -1,10 +1,13 @@
-"""The co-hosted multi-group server (``multigroup.MultiGroupServer``) and
-what it needs: the shared serving seams and restart replay
-(``server.py``), array-form GroupEntry replay (``gereplay.py``), cluster
-membership in the store (``cluster.py``) and the stats endpoints'
-sources (``stats.py``).  The port of that part of ``etcd_tpu/server``;
-the single-group ``EtcdServer``, the distributed server and the front
-door are not ported yet."""
+"""The co-hosted multi-group server (``multigroup.MultiGroupServer``),
+the distributed tier (``distserver.DistServer``, with its append
+pipeline ``distpipe.py``, peer links ``peerlink.py`` and linearizable
+read bookkeeping ``readindex.py``) and what they need: the shared
+serving seams and restart replay (``server.py``), array-form GroupEntry
+replay (``gereplay.py``), cluster membership in the store
+(``cluster.py``) and the stats endpoints' sources (``stats.py``).  The
+port of that part of ``etcd_tpu/server``; the single-group
+``EtcdServer``, the role topology and the front door are not ported
+yet."""
 
 from .cluster import Cluster, ClusterStore, Member
 from .multigroup import MultiGroupServer, group_of

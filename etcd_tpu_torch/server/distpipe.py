@@ -1,0 +1,254 @@
+"""Windowed append-pipeline bookkeeping for the dist tier.
+
+The lockstep leader round (one frame per peer, one HTTP round trip,
+absorb, repeat) serialized four latencies per committed batch:
+leader fsync -> send -> follower fsync -> response.  Raft permits a
+leader to keep MANY uncommitted append frames in flight per follower
+and to overlap its own fsync with the sends (the standard
+pipelining/batching port, arXiv:1905.10786 §4); this module is the
+per-peer state machine that makes that safe over a drop-tolerant
+transport:
+
+- every append frame carries ``(epoch, seq)``: seq numbers frames
+  per peer, epoch is bumped whenever the local leadership set
+  changes, so late acks from a previous reign can NEVER touch
+  progress state (``stale_epoch``);
+- acks may return out of order (striped connections) and are matched
+  to the exact in-flight frame; unknown/duplicate seqs are counted
+  and dropped (``stale_seq``) — match_index only ever advances off a
+  matched ack, and monotonically (the engine's progress_update is a
+  max);
+- per peer the pipe is REPLICATE (window of ``depth`` frames in
+  flight, next_ advanced optimistically at send), PROBE (ONE frame
+  in flight, entered on a reject or a transport failure: after a
+  follower detects a gap and rejects, exactly one catch-up frame
+  probes from the repair point instead of a window of doomed
+  resends), or SNAPSHOT (every lane the leader could send the
+  peer sits behind the compaction point, so NO append window can
+  help — one need-snap notification frame in flight at heartbeat
+  cadence while the peer streams the snapshot; a positive ack must
+  NOT reopen the window, only a pump that observes the peer past the
+  compaction point does).
+
+This object is pure bookkeeping — no I/O, no locks.  Every method is
+called under the owning server's lock; the deterministic pipeline
+tests drive it directly.
+"""
+
+from __future__ import annotations
+
+REPLICATE = "replicate"
+PROBE = "probe"
+SNAPSHOT = "snapshot"
+
+
+class FrameMeta:
+    """One in-flight append frame's accounting record."""
+
+    __slots__ = ("seq", "epoch", "t0", "nbytes", "has_ents", "stripe",
+                 "traced", "n_ents")
+
+    def __init__(self, seq: int, epoch: int, t0: float, nbytes: int,
+                 has_ents: bool, stripe: int, n_ents: int = 0):
+        self.seq = seq
+        self.epoch = epoch
+        self.t0 = t0
+        self.nbytes = nbytes
+        self.has_ents = has_ents
+        self.stripe = stripe
+        # entries across all lanes of the frame: the multi-group
+        # fusion evidence — inflight_entries() exposes the
+        # window's entry depth, not just its frame count
+        self.n_ents = n_ents
+        # the frame carries a distributed-trace block: its
+        # matched ack is a flight-recorder frame event (the
+        # send/ack half of the stitcher's clock-alignment pairs)
+        self.traced = False
+
+
+class _PeerPipe:
+    __slots__ = ("next_seq", "inflight", "mode", "last_send")
+
+    def __init__(self):
+        self.next_seq = 1
+        self.inflight: dict[int, FrameMeta] = {}
+        self.mode = REPLICATE
+        # per-STRIPE send stamps: heartbeat cadence is judged per
+        # stripe, because each stripe's frames reset election timers
+        # only on ITS lanes — one stripe's heartbeat must not
+        # satisfy the other's deadline
+        self.last_send: dict[int, float] = {}
+
+
+class AppendPipeline:
+    """Per-peer windowed send-stream state (module docstring)."""
+
+    def __init__(self, m: int, slot: int, depth: int):
+        if depth < 1:
+            raise ValueError(f"pipeline depth {depth} must be >= 1")
+        self.depth = depth
+        self.epoch = 1  # owner: distpipe-state
+        self._peers = {p: _PeerPipe() for p in range(m) if p != slot}  # owner: distpipe-state
+
+    # -- send side --------------------------------------------------------
+
+    def can_send(self, peer: int) -> bool:
+        pp = self._peers[peer]
+        if pp.mode != REPLICATE:  # PROBE and SNAPSHOT: one in flight
+            return not pp.inflight
+        return len(pp.inflight) < self.depth
+
+    def register(self, peer: int, *, t0: float, nbytes: int,  # owner: distpipe-state
+                 has_ents: bool, stripe: int,
+                 n_ents: int = 0) -> FrameMeta:
+        """Allocate the next seq for ``peer`` and record the frame as
+        in flight; the caller stamps (seq, epoch) into the frame and
+        hands it to the transport."""
+        pp = self._peers[peer]
+        seq = pp.next_seq
+        pp.next_seq = (seq + 1) & 0x7FFFFFFF or 1
+        meta = FrameMeta(seq, self.epoch, t0, nbytes, has_ents,
+                         stripe, n_ents)
+        pp.inflight[seq] = meta
+        pp.last_send[stripe] = t0
+        return meta
+
+    def last_send(self, peer: int, stripe: int = 0) -> float:
+        return self._peers[peer].last_send.get(stripe, 0.0)
+
+    def inflight(self, peer: int) -> int:
+        return len(self._peers[peer].inflight)
+
+    def inflight_entries(self, peer: int) -> int:
+        """Entries (not frames) in the peer's window — how much the
+        multi-group fusion amortizes each frame's fixed cost."""
+        return sum(m.n_ents
+                   for m in self._peers[peer].inflight.values())
+
+    def inflight_total(self) -> int:
+        return sum(len(pp.inflight) for pp in self._peers.values())
+
+    def mode(self, peer: int) -> str:
+        return self._peers[peer].mode
+
+    # -- ack side ---------------------------------------------------------
+
+    def ack(self, peer: int, seq: int,  # owner: distpipe-state
+            epoch: int) -> tuple[str, FrameMeta | None]:
+        """Match one response to its in-flight frame.  Returns
+        ``("ok", meta)`` or ``(reason, None)`` where reason is
+        ``stale_epoch`` (response from a previous leadership reign —
+        its progress content must NOT be absorbed) or ``stale_seq``
+        (duplicate or already-failed frame)."""
+        if epoch != self.epoch:
+            return "stale_epoch", None
+        meta = self._peers[peer].inflight.pop(seq, None)
+        if meta is None:
+            return "stale_seq", None
+        return "ok", meta
+
+    def note_reject(self, peer: int) -> bool:  # owner: distpipe-state
+        """A lane in a matched response rejected: the follower found
+        a gap (out-of-order or dropped frame).  Collapse to PROBE so
+        the repair goes out as ONE catch-up frame, not a window of
+        doomed optimistic sends.  A SNAPSHOT peer stays SNAPSHOT —
+        it is behind the compaction point, so probing cannot repair
+        it either; only the install can.  Returns True when the mode
+        actually changed (the caller records the transition in the
+        flight ring)."""
+        pp = self._peers[peer]
+        if pp.mode in (SNAPSHOT, PROBE):
+            return False
+        pp.mode = PROBE
+        return True
+
+    def note_ok(self, peer: int) -> bool:  # owner: distpipe-state
+        """A matched response appended cleanly: (re)open the window.
+        SNAPSHOT is sticky here by design: a need-snap lane acks
+        POSITIVELY at its commit (distmember.handle_append), so an
+        ok ack proves nothing about the peer having crossed the
+        compaction point — only :meth:`note_caught_up` (called when a
+        pump-time build shows no need-snap lanes) reopens the
+        window.  Returns True on an actual transition."""
+        pp = self._peers[peer]
+        if pp.mode in (SNAPSHOT, REPLICATE):
+            return False
+        pp.mode = REPLICATE
+        return True
+
+    def note_snapshot(self, peer: int) -> bool:  # owner: distpipe-state
+        """Every sendable lane for this peer is behind the leader's
+        compaction point: stop building append windows (they would
+        all be doomed need-snap frames) and hold one notification
+        frame in flight at heartbeat cadence until the peer's
+        streamed install lands.  Returns True on an actual
+        transition."""
+        pp = self._peers[peer]
+        if pp.mode == SNAPSHOT:
+            return False
+        pp.mode = SNAPSHOT
+        return True
+
+    def note_caught_up(self, peer: int) -> bool:  # owner: distpipe-state
+        """A pump-time build_append saw the peer past the compaction
+        point again (its streamed install landed and the positive
+        need-snap ack advanced match/next): leave SNAPSHOT via ONE
+        confirming probe frame rather than a full optimistic window
+        against a freshly-installed log.  Returns True on an actual
+        transition."""
+        pp = self._peers[peer]
+        if pp.mode != SNAPSHOT:
+            return False
+        pp.mode = PROBE
+        return True
+
+    def fail(self, peer: int, seqs) -> list[FrameMeta]:  # owner: distpipe-state
+        """Transport failure: the listed frames will never be acked.
+        Pops them, enters PROBE (SNAPSHOT peers stay SNAPSHOT — a
+        lost notification frame changes nothing about the peer being
+        behind the compaction point); the caller rolls ``next_`` back
+        to ``match + 1`` (DistMember.probe_reset) and the next pump
+        sends one probe frame from the confirmed point."""
+        pp = self._peers[peer]
+        popped = [pp.inflight.pop(s) for s in seqs
+                  if s in pp.inflight]
+        if popped and pp.mode != SNAPSHOT:
+            pp.mode = PROBE
+        return popped
+
+    def expire(self, now: float,  # owner: distpipe-state
+               max_age: float) -> dict[int, list[FrameMeta]]:
+        """Backstop sweep: frames in flight longer than ``max_age``
+        can no longer be trusted to ack or fail (a transport edge
+        case that lost both).  Pops them per peer and enters PROBE —
+        the caller rolls next_ back and resends.  Safe because
+        redelivery is at-least-once by contract; a late ack for an
+        expired seq reads stale_seq and is dropped."""
+        out: dict[int, list[FrameMeta]] = {}
+        for peer, pp in self._peers.items():
+            stale = [s for s, m in pp.inflight.items()
+                     if now - m.t0 > max_age]
+            if stale:
+                out[peer] = [pp.inflight.pop(s) for s in stale]
+                if pp.mode != SNAPSHOT:
+                    pp.mode = PROBE
+        return out
+
+    # -- leadership transitions -------------------------------------------
+
+    def bump_epoch(self) -> int:  # owner: distpipe-state
+        """The local leadership set changed (won or lost lanes): all
+        in-flight frames belong to the old reign.  Drop them, bump
+        the epoch (so their late acks read stale_epoch), and re-probe
+        every peer.  Returns how many frames were dropped."""
+        dropped = 0
+        self.epoch = (self.epoch + 1) & 0x7FFFFFFF or 1
+        for pp in self._peers.values():
+            dropped += len(pp.inflight)
+            pp.inflight.clear()
+            pp.mode = PROBE
+        return dropped
+
+
+__all__ = ["AppendPipeline", "FrameMeta", "PROBE", "REPLICATE",
+           "SNAPSHOT"]

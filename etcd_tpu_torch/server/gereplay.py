@@ -1,6 +1,5 @@
 """Array-form GroupEntry replay for multi-group restart (the port's copy
-of ``etcd_tpu/server/gereplay.py``, less ``seed_log_arrays``, which only
-the distributed server calls).
+of ``etcd_tpu/server/gereplay.py``).
 
 Walking every replayed entry with ``GroupEntry.unmarshal`` and a
 winners dict would put a per-record scalar loop on the restart path (at
@@ -115,3 +114,42 @@ def scan(block_or_entries, blob: np.ndarray | None = None) -> GEStream:
                     gterm=gterm, poff=None, plen=None, blob=None,
                     plist=plist)
 
+
+def seed_log_arrays(stream: GEStream, winners: np.ndarray,
+                    frontier: np.ndarray, fterms: np.ndarray,
+                    g: int, cap: int):
+    """Rebuild the engine's per-group log window from the replayed
+    tail, entirely in arrays.
+
+    Returns ``(log_term [g, cap], last [g], tail_positions)`` where
+    slot 0 of each row carries the frontier term, slots 1.. carry the
+    CONTIGUOUS run of winner terms above the frontier (a gap ends the
+    run — a non-contiguous higher entry is unreachable garbage from
+    a dropped batch), and ``tail_positions`` are the stream positions
+    of the retained tail entries (callers hydrate their payload
+    rings from these).
+    """
+    log_term = np.zeros((g, cap), np.int32)
+    log_term[:, 0] = fterms
+    last = frontier.astype(np.int64).copy()
+    if winners.size == 0:
+        return log_term, last, winners
+    wg = stream.group[winners]
+    wi = stream.gindex[winners]
+    wt = stream.gterm[winners]
+    rel = wi - frontier[wg]
+    tail = (rel >= 1) & (rel < cap)
+    if not tail.any():
+        return log_term, last, winners[:0]
+    tg, tt, tr = wg[tail], wt[tail], rel[tail].astype(np.int64)
+    # presence matrix + cumulative product = per-group contiguous run
+    # length from slot 1 (restart-only [g, cap] scratch; 100k groups
+    # x cap 1024 is ~100 MB transiently)
+    pres = np.zeros((g, cap), np.uint8)
+    pres[tg, tr] = 1
+    runlen = np.cumprod(pres[:, 1:], axis=1).sum(
+        axis=1).astype(np.int64)
+    last += runlen
+    keep = tr <= runlen[tg]
+    log_term[tg[keep], tr[keep]] = tt[keep]
+    return log_term, last, np.sort(winners[tail][keep])

@@ -1,0 +1,455 @@
+"""Peer connection plumbing shared by the classic sender and the
+dist tier: one keep-alive connection cache for synchronous
+request/response POSTs, and the striped PIPELINED channel the
+windowed append pipeline rides.
+
+Both exist because a fresh TCP connect per frame costs more than the
+frame itself at intra-DC latencies (the distserver keep-alive cache
+proved this; this module is that cache promoted to a shared
+abstraction, plus the pipelining the lockstep round could not use).
+
+Delivery contract (both forms): AT-LEAST-ONCE.  A retry or a
+reconnect cannot tell "the peer closed the idle socket before my
+bytes arrived" from "the peer processed the POST and the response was
+lost", so a processed frame may be re-sent.  Every payload routed
+through here must be idempotent at the receiver (raft append/vote
+frames are prefix-verified and term-guarded; snapshot pulls are
+reads) — do NOT route a non-idempotent peer operation through this
+module without adding a dedup key at the receiver.
+"""
+
+from __future__ import annotations
+
+import http.client
+import logging
+import queue
+import socket
+import threading
+from collections import deque
+from urllib.parse import urlparse
+
+from ..utils import faults as _faults
+from ..utils.backoff import Backoff
+
+log = logging.getLogger(__name__)
+
+
+class KeepAlivePool:
+    """Keyed cache of keep-alive HTTP(S) connections.
+
+    ``post(key, url, ...)`` POSTs over the cached connection for
+    ``key``; a send on a connection the peer closed between calls
+    retries ONCE on a fresh connection (counted in ``reconnects`` —
+    the classic sender bills these to its peer-send failure family).
+    The cache entry is POPPED for the duration of the call:
+    concurrent callers racing on one key each get their own
+    connection, and the store-back closes any connection another
+    caller parked meanwhile.  A changed ``url`` for a cached key
+    (runtime membership swap, a test's network cut) drops the stale
+    connection instead of short-circuiting the new route.
+    """
+
+    def __init__(self, timeout: float = 1.0, ssl_context=None,
+                 keep_statuses: tuple[int, ...] = (200, 204),
+                 on_reconnect=None):
+        self.timeout = timeout
+        self.ssl_context = ssl_context
+        self.keep_statuses = keep_statuses
+        self._conns: dict[object, tuple[str, object]] = {}
+        self._lock = threading.Lock()
+        self.reconnects = 0  # stale-cached-socket retry events
+        self._on_reconnect = on_reconnect
+
+    def _connect(self, u):
+        if u.scheme == "https":
+            return http.client.HTTPSConnection(
+                u.hostname, u.port, timeout=self.timeout,
+                context=self.ssl_context)
+        return http.client.HTTPConnection(
+            u.hostname, u.port, timeout=self.timeout)
+
+    def post(self, key, url: str, path: str,
+             payload) -> tuple[int, bytes] | None:
+        """POST ``payload`` to ``url + path``; returns
+        ``(status, body)`` or None when both attempts failed (a
+        dropped message, by contract)."""
+        u = urlparse(url)
+        with self._lock:
+            held_url, conn = self._conns.pop(key, (None, None))
+        if conn is not None and held_url != url:
+            try:
+                conn.close()
+            except Exception:
+                pass
+            conn = None
+        cached = conn is not None
+        for attempt in range(2):
+            if conn is None:
+                conn = self._connect(u)
+            try:
+                conn.request(
+                    "POST", path, body=payload,
+                    headers={"Content-Type":
+                             "application/octet-stream"})
+                resp = conn.getresponse()
+                out = resp.read()
+                if resp.status in self.keep_statuses:
+                    with self._lock:
+                        prev = self._conns.get(key)
+                        self._conns[key] = (url, conn)
+                    if prev is not None:  # racing caller parked one
+                        try:
+                            prev[1].close()
+                        except Exception:
+                            pass
+                else:
+                    conn.close()
+                return resp.status, out
+            except (http.client.HTTPException, OSError,
+                    ConnectionError):
+                try:
+                    conn.close()
+                except Exception:
+                    pass
+                conn = None
+                if cached and attempt == 0:
+                    # the parked socket had gone stale under us
+                    with self._lock:
+                        self.reconnects += 1
+                    if self._on_reconnect is not None:
+                        self._on_reconnect()
+        return None
+
+    def close(self) -> None:
+        with self._lock:
+            conns = list(self._conns.values())
+            self._conns.clear()
+        for _url, conn in conns:
+            try:
+                conn.close()
+            except Exception:
+                pass
+
+
+def _read_http_response(rf) -> tuple[int, bytes, bool]:
+    """Parse one HTTP/1.1 response off a buffered reader.  Returns
+    (status, body, keep) where ``keep`` is False when the server
+    asked to close.  Raises ConnectionError on EOF/short reads."""
+    line = rf.readline(65536)
+    if not line:
+        raise ConnectionError("EOF before status line")
+    parts = line.split(None, 2)
+    if len(parts) < 2 or not parts[0].startswith(b"HTTP/"):
+        raise ConnectionError(f"bad status line {line[:64]!r}")
+    status = int(parts[1])
+    clen = 0
+    keep = True
+    while True:
+        h = rf.readline(65536)
+        if h in (b"\r\n", b"\n"):
+            break
+        if not h:
+            raise ConnectionError("EOF in headers")
+        k, _, v = h.partition(b":")
+        k = k.strip().lower()
+        if k == b"content-length":
+            clen = int(v)
+        elif k == b"connection" and b"close" in v.lower():
+            keep = False
+    body = rf.read(clen) if clen else b""
+    if len(body) != clen:
+        raise ConnectionError("short body")
+    return status, body, keep
+
+
+class _Stripe:
+    """One pipelined socket: requests written ahead, responses read
+    back in order and FIFO-matched to their seq tags."""
+
+    __slots__ = ("sock", "rf", "pending", "cond", "gen", "dead", "q",
+                 "backoff")
+
+    def __init__(self):
+        self.sock = None
+        self.rf = None
+        self.pending: deque = deque()  # (seq, payload_len) FIFO
+        self.cond = threading.Condition()
+        self.gen = 0      # bumped per (re)connect
+        self.dead = True
+        self.q: queue.Queue = queue.Queue()
+        # reconnect pacing: the first retry after a healthy
+        # stretch is free, then jittered-exponential up to 5s.
+        # Reset ONLY when the reader parses a real response — under
+        # a persistent one-way partition connect() keeps succeeding
+        # while responses never come, and the old flat 50ms wait
+        # became a tight connect/teardown churn loop at read_timeout
+        # cadence.
+        self.backoff = Backoff(base=0.05, cap=5.0, site="peerlink",
+                               first_zero=True)
+
+
+class PipeChannel:
+    """Striped pipelined HTTP/1.1 POST channel to ONE peer.
+
+    The caller tags each payload with a ``seq``; up to the caller's
+    window of requests ride each stripe ahead of their responses
+    (true wire pipelining — the reason the channel speaks raw sockets
+    instead of http.client, whose per-response buffered makefile
+    cannot be safely interleaved).  Per stripe, responses return in
+    request order, so the FIFO pending deque matches them back to
+    seqs; ACROSS stripes they interleave arbitrarily — the pipeline
+    layer matches on the frame's own (epoch, seq) tag and tolerates
+    reordering.
+
+    Each stripe owns its OWN send queue (``send(..., stripe=s)``):
+    the pipeline partitions raft GROUPS across stripes, so one lane's
+    frames always ride one connection in order — striping adds
+    parallel sockets without reordering any single group's appends
+    (cross-stripe reordering only ever interleaves INDEPENDENT
+    lanes).
+
+    ``on_resp(seq, status, body)`` fires on a reader thread.
+    ``on_fail(seqs, reason)`` fires with every seq whose response can
+    no longer arrive (connect failure, send failure, read error/
+    timeout) — the pipeline treats those as dropped frames and falls
+    back to probe-and-resend, so at-least-once redelivery is the
+    worst case, never silent loss.
+
+    ``on_sent(seq)`` (optional) fires on the writer thread right
+    after the frame's bytes hit the socket — the accurate send edge
+    the trace stitcher's clock alignment wants (the caller registers
+    the frame BEFORE queueing it, but the writer may drain later
+    under load; stamping at registration would fold queue wait into
+    the network hop).
+
+    ``fault_ctx=(src, dst)`` (optional) names the link for the
+    ``peerlink.send`` failpoint (utils/faults): ``drop`` loses the
+    frame SILENTLY — not registered as pending, no on_fail — so only
+    the caller's in-flight expire sweep recovers it (the gray-loss
+    case the sweep exists for); ``corrupt`` flips one payload byte;
+    ``err`` reads as a send failure.
+    """
+
+    def __init__(self, url: str, path: str, *, stripes: int = 1,
+                 timeout: float = 1.0, read_timeout: float | None = None,
+                 ssl_context=None, on_resp=None, on_fail=None,
+                 on_sent=None, name: str = "",
+                 fault_ctx: tuple[str, str] | None = None):
+        self.url = url
+        u = urlparse(url)
+        self._host, self._port = u.hostname, u.port
+        self._tls = u.scheme == "https"
+        self._path = path
+        self.timeout = timeout
+        # a pipelined response sits behind every request ahead of it:
+        # give the reader more rope than one synchronous round trip
+        self.read_timeout = (read_timeout if read_timeout is not None
+                             else 4.0 * timeout)
+        self._ssl = ssl_context
+        self._on_resp = on_resp or (lambda seq, status, body: None)
+        self._on_fail = on_fail or (lambda seqs, reason: None)
+        self._on_sent = on_sent
+        self._fault_ctx = fault_ctx or (None, None)
+        self._closed = threading.Event()
+        self.stripes = max(1, stripes)
+        self._stripes = [_Stripe() for _ in range(self.stripes)]
+        self._threads = []
+        for i, st in enumerate(self._stripes):
+            w = threading.Thread(
+                target=self._writer, args=(st,), daemon=True,
+                name=f"pipe-{name}-w{i}")
+            r = threading.Thread(
+                target=self._reader, args=(st,), daemon=True,
+                name=f"pipe-{name}-r{i}")
+            self._threads += [w, r]
+            w.start()
+            r.start()
+
+    # -- caller side ------------------------------------------------------
+
+    def send(self, seq: int, payload, stripe: int = 0) -> None:
+        """Enqueue one tagged request on stripe ``stripe``
+        (non-blocking; the window is the caller's responsibility)."""
+        self._stripes[stripe % self.stripes].q.put((seq, payload))
+
+    def queued(self) -> int:
+        return sum(st.q.qsize() for st in self._stripes)
+
+    def close(self) -> None:
+        self._closed.set()
+        for st in self._stripes:
+            st.q.put(None)
+            self._teardown(st, "closed")
+            # the writer may have exited on the sentinel (or long
+            # ago, on closed) without draining: frames still QUEUED
+            # were never sent and never registered as pending — fail
+            # them too, or the caller's in-flight window leaks shut
+            # permanently (found as a post-partition-heal wedge: the
+            # rebuilt channel's predecessor swallowed one probe
+            # frame and the peer never heard the new term)
+            leftover = []
+            while True:
+                try:
+                    item = st.q.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None:
+                    leftover.append(item[0])
+            if leftover:
+                self._on_fail(leftover, "closed")
+
+    # -- internals --------------------------------------------------------
+
+    def _teardown(self, st: _Stripe, reason: str,
+                  gen: int | None = None) -> None:
+        """Kill the stripe's socket and fail its pending frames.
+        ``gen`` guards against double-teardown races (reader and
+        writer both seeing the same dead socket).  on_fail fires
+        OUTSIDE st.cond — the callback takes the server lock, and a
+        server-lock holder may be closing this channel (lock-order
+        discipline: never hold cond while taking the server lock)."""
+        with st.cond:
+            if gen is not None and st.gen != gen:
+                return
+            failed = [seq for seq, _ in st.pending]
+            st.pending.clear()
+            st.dead = True
+            st.gen += 1
+            sock, rf = st.sock, st.rf
+            st.sock = st.rf = None
+            st.cond.notify_all()
+        for f in (rf, sock):
+            if f is not None:
+                try:
+                    f.close()
+                except Exception:
+                    pass
+        if failed:
+            self._on_fail(failed, reason)
+
+    def _connect(self, st: _Stripe) -> bool:
+        try:
+            sock = socket.create_connection(
+                (self._host, self._port), timeout=self.timeout)
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            if self._tls and self._ssl is not None:
+                sock = self._ssl.wrap_socket(
+                    sock, server_hostname=self._host)
+            sock.settimeout(self.read_timeout)
+            rf = sock.makefile("rb")
+        except OSError:
+            return False
+        with st.cond:
+            st.sock, st.rf = sock, rf
+            st.dead = False
+            st.gen += 1
+            st.cond.notify_all()
+        return True
+
+    def _writer(self, st: _Stripe) -> None:
+        while not self._closed.is_set():
+            item = st.q.get()
+            if item is None:
+                return
+            if self._closed.is_set():
+                # close() raced our dequeue: its leftover-drain can
+                # no longer see this frame, so the no-silent-loss
+                # guarantee is ours to keep — fail it, don't drop it
+                self._on_fail([item[0]], "closed")
+                return
+            seq, payload = item
+            # peerlink.send failpoint: silent loss / byte
+            # corruption / injected send error, per [src->dst]
+            try:
+                act = _faults.hit("peerlink.send",
+                                  src=self._fault_ctx[0],
+                                  dst=self._fault_ctx[1])
+            except OSError:
+                self._on_fail([seq], "fault")
+                continue
+            if act == _faults.DROP:
+                # SILENT loss: never registered as pending, no
+                # on_fail — exactly the gray failure the caller's
+                # expire sweep exists to recover
+                continue
+            if act == _faults.CORRUPT:
+                payload = _faults.flip_byte(payload)
+            if st.dead:
+                # reconnect pacing (shared jittered backoff): one
+                # free immediate retry after a healthy stretch, then
+                # exponential — reset only by a parsed response, so
+                # a one-way partition (connect works, responses
+                # never come) cannot hot-loop connect/teardown
+                d = st.backoff.next()
+                if d > 0:
+                    self._closed.wait(d)
+                    if self._closed.is_set():
+                        self._on_fail([seq], "closed")
+                        return
+                if not self._connect(st):
+                    self._on_fail([seq], "reconnect")
+                    continue
+            head = (f"POST {self._path} HTTP/1.1\r\n"
+                    f"Host: {self._host}:{self._port}\r\n"
+                    f"Content-Type: application/octet-stream\r\n"
+                    f"Content-Length: {len(payload)}\r\n"
+                    f"\r\n").encode()
+            with st.cond:
+                dead = st.dead
+                if not dead:
+                    sock = st.sock
+                    # registered BEFORE bytes hit the wire: the
+                    # reader must know the seq when the response
+                    # races back
+                    st.pending.append((seq, len(payload)))
+                    st.cond.notify_all()
+            if dead:
+                self._on_fail([seq], "reconnect")
+                continue
+            try:
+                # sendall OUTSIDE the cond: a blocked send must not
+                # stop the reader from draining responses (that
+                # deadlock is the whole window at depth > socket
+                # buffer)
+                sock.sendall(head)
+                sock.sendall(payload)
+            except OSError:
+                self._teardown(st, "reconnect")
+                continue
+            if self._on_sent is not None:
+                self._on_sent(seq)
+
+    def _reader(self, st: _Stripe) -> None:
+        while not self._closed.is_set():
+            with st.cond:
+                while (not self._closed.is_set()
+                       and (st.dead or not st.pending)):
+                    st.cond.wait(0.5)
+                if self._closed.is_set():
+                    return
+                rf, gen = st.rf, st.gen
+            try:
+                status, body, keep = _read_http_response(rf)
+            except (OSError, ValueError, ConnectionError):
+                self._teardown(st, "reconnect", gen=gen)
+                continue
+            # a real response arrived: the link is healthy — re-arm
+            # the writer's reconnect pacing from zero
+            st.backoff.reset()
+            with st.cond:
+                if st.gen != gen:
+                    continue  # raced a teardown; seqs already failed
+                seq = st.pending.popleft()[0] if st.pending else None
+            if not keep or status != 200:
+                # server asked to close, or errored: drop the socket
+                # (a non-200 peer may be a zombie handler thread of a
+                # stopped server still holding the old connection —
+                # reconnecting is what reaches its restarted
+                # successor on the same address, the keep-alive
+                # cache's close-on-error rule applied to the pipe)
+                self._teardown(st, "reconnect", gen=gen)
+            if seq is not None:
+                self._on_resp(seq, status, body)
+
+
+__all__ = ["KeepAlivePool", "PipeChannel"]

@@ -1,0 +1,314 @@
+"""Linearizable-read bookkeeping for the serving tiers:
+leader-lease clocks, batched ReadIndex queues, and
+follower commit-index wait-points.
+
+GETs were served straight off the local store replica, so a follower
+(or a deposed leader) could return data the quorum had since
+overwritten — the only "safe" read was a full replicated write
+(QGET).  The canonical fix ported from the Paxos/Raft optimization
+literature (PAPERS.md, "On the parallels between Paxos and Raft")
+keeps reads OFF the WAL entirely:
+
+- **Leader lease**: every matched append/heartbeat ack already
+  proves a follower reset its election timer when the frame was
+  SENT (``FrameMeta.t0``).  :class:`LeaseClock` keeps the newest
+  such send time per (peer, lane); the q-th largest over a group's
+  members (``ops.quorum.quorum_basis`` — the commit-quorum order
+  statistic applied to time) is the latest instant a quorum
+  endorsed this host's leadership.  No member of that quorum can
+  vote for a new leader before ``basis + election_s``, and any new
+  leader needs a vote from at least one of them, so reads served
+  before ``basis + lease_s`` (``lease_s < election_s − drift``)
+  cannot miss a newer leader's committed write.  Zero messages,
+  zero fsyncs per read.
+- **Batched ReadIndex**: when the lease cannot vouch (just elected,
+  quiet cluster, lease disabled), reads register in per-group FIFO
+  queues (:class:`ReadQueue`).  Confirmation piggybacks on the acks
+  already flowing through the PR-5 pipeline: once ``basis`` moves
+  past a read's registration time, a quorum round demonstrably
+  completed AFTER the read arrived.  One vectorized ``[G]`` sweep
+  releases every confirmable read at once — thousands of pending
+  reads cost one basis computation, not one quorum round each.
+- **Follower wait-points**: a follower fetches a confirmed read
+  index from the leader and parks on :class:`WaitPoints` until its
+  own apply frontier reaches it, then serves from its local replica
+  (the wait-registry pattern, applied to commit indexes).
+
+All three classes are pure bookkeeping — no I/O, no locks; every
+method is called under the owning server's lock (the distpipe
+discipline).  The owning server supplies the safety inputs:
+``read_ok``/``floor`` (the lane's commit covers an entry of the
+current term — leader-completeness gating, raft thesis §6.4) and
+``lead`` (the host-cached leadership view).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from heapq import heapify, heappop, heappush
+
+import numpy as np
+
+from ..obs import metrics as _obs
+from ..ops.quorum import quorum_basis
+
+#: serve-path labels (the store-stats split + etcd_read_serve_total)
+PATH_LEASE = "lease"
+PATH_READ_INDEX = "read_index"
+PATH_FOLLOWER = "follower_wait"
+PATH_SERIALIZABLE = "serializable"
+PATH_QUORUM = "quorum"
+PATH_COHOSTED = "cohosted"
+
+
+def serve_counter(path: str, outcome: str):
+    """The labeled serve counter (callers cache the handles on their
+    hot paths, like every other labeled-registry lookup)."""
+    return _obs.registry.counter("etcd_read_serve_total",
+                                 path=path, outcome=outcome)
+
+
+class LeaseClock:
+    """Per-(peer, lane) newest positively-acked frame SEND time.
+
+    ``note_ack`` records the send time of a matched ack for the
+    lanes the follower acknowledged at the leader's term
+    (``resp.active`` — lanes where the follower adopted/held our
+    term and reset its election timer).  Lanes where the follower
+    answered from a higher term are excluded by that mask, so a
+    deposing ack can never extend a lease.  Times only move forward
+    (a late ack for an old frame cannot regress the evidence).
+    """
+
+    __slots__ = ("g", "m", "slot", "ack_t0")
+
+    def __init__(self, g: int, m: int, slot: int):
+        self.g, self.m, self.slot = g, m, slot
+        self.ack_t0 = np.zeros((m, g), np.float64)
+
+    def note_ack(self, peer: int, t0: float,
+                 lanes: np.ndarray) -> None:
+        row = self.ack_t0[peer]
+        np.copyto(row, t0, where=np.asarray(lanes, bool)
+                  & (row < t0))
+
+    def basis(self, members: np.ndarray, nmembers: np.ndarray,
+              now: float) -> np.ndarray:
+        """[G] quorum confirmation basis (ops.quorum.quorum_basis)."""
+        return quorum_basis(self.ack_t0, members, nmembers,
+                            self.slot, now)
+
+    def basis_one(self, gi: int, members: np.ndarray,
+                  nmembers: np.ndarray, now: float) -> float:
+        """Scalar fast path for one group (the per-read lease
+        check): same order statistic over the group's member row."""
+        v = np.where(members[gi], self.ack_t0[:, gi], -np.inf)
+        if members[gi, self.slot]:
+            v[self.slot] = now
+        q = int(nmembers[gi]) // 2 + 1
+        return float(np.sort(v)[-q])
+
+
+class PendingRead:
+    """One registered linearizable read (or ReadIndex RPC).
+
+    ``n`` counts the reads riding this registration: a read_many
+    batch registers ONE channel per group and folds the group's
+    remaining reads into it (— the per-read Chan allocation
+    was a stage-table line), so release sweeps weight their batch
+    metric by ``n``, not the queue length."""
+
+    __slots__ = ("t0", "required", "ch", "kind", "n")
+
+    def __init__(self, t0: float, required: int, ch, kind: str):
+        self.t0 = t0            # registration time (monotonic)
+        self.required = required  # leader applied at registration
+        self.ch = ch            # utils.wait.Chan
+        self.kind = kind        # "read" | "rd" (follower RPC)
+        self.n = 1              # reads sharing this registration
+
+
+class ReadQueue:
+    """Per-group FIFO queues of pending linearizable reads.
+
+    Registration order is monotone in ``t0`` within a group, so the
+    release sweep only ever inspects queue heads: a vectorized
+    ``[G]`` precheck masks the groups worth visiting, then heads pop
+    while the confirmation condition holds — the whole sweep is one
+    basis compare amortized over every pending read.
+    """
+
+    def __init__(self, g: int):
+        self.g = g
+        self._q: list[deque[PendingRead]] = [deque()
+                                             for _ in range(g)]
+        self._count = np.zeros(g, np.int64)
+        self.pending = 0
+
+    def register(self, gi: int, t0: float, required: int, ch,
+                 kind: str = "read") -> PendingRead:
+        pr = PendingRead(t0, required, ch, kind)
+        self._q[gi].append(pr)
+        self._count[gi] += 1
+        self.pending += 1
+        return pr
+
+    def release(self, *, lead: np.ndarray, read_ok: np.ndarray,
+                applied: np.ndarray, floor: np.ndarray,
+                basis: np.ndarray, lease_until: np.ndarray,
+                now: float) -> list[tuple[PendingRead, str, int]]:
+        """Pop every confirmable read.  A read confirms when its
+        lane is led with a current-term commit applied
+        (``lead & read_ok & applied >= floor``) AND either a quorum
+        round completed after it registered (``basis > t0`` — the
+        batched ReadIndex) or the lane's lease vouches
+        (``now < lease_until``).  Returns ``(read, path, rd)``
+        tuples; ``rd`` is the index a follower must reach before
+        serving (max of the leader's applied-at-registration and the
+        current-term floor)."""
+        if not self.pending:
+            return []
+        mask = ((self._count > 0) & np.asarray(lead, bool)
+                & np.asarray(read_ok, bool)
+                & (np.asarray(applied) >= np.asarray(floor)))
+        out: list[tuple[PendingRead, str, int]] = []
+        for gi in np.nonzero(mask)[0]:
+            gi = int(gi)
+            q = self._q[gi]
+            leased = now < lease_until[gi]
+            while q and (leased or basis[gi] > q[0].t0):
+                pr = q.popleft()
+                self._count[gi] -= 1
+                self.pending -= 1
+                path = PATH_LEASE if leased else PATH_READ_INDEX
+                rd = max(pr.required, int(floor[gi]))
+                out.append((pr, path, rd))
+        return out
+
+    def expire(self, now: float,
+               max_age: float) -> list[PendingRead]:
+        """Drop reads pending longer than ``max_age`` (their callers
+        have long since timed out; the sweep keeps abandoned waiters
+        from accumulating).  FIFO t0 order means expired reads are
+        always at the heads."""
+        if not self.pending:
+            return []
+        out: list[PendingRead] = []
+        for gi in np.nonzero(self._count > 0)[0]:
+            q = self._q[int(gi)]
+            while q and now - q[0].t0 > max_age:
+                out.append(q.popleft())
+                self._count[gi] -= 1
+                self.pending -= 1
+        return out
+
+    def fail_lanes(self, lanes: np.ndarray) -> list[PendingRead]:
+        """Fail every read pending on the masked lanes (leadership
+        lost: this host can never confirm them)."""
+        if not self.pending:
+            return []
+        out: list[PendingRead] = []
+        for gi in np.nonzero(np.asarray(lanes, bool)
+                             & (self._count > 0))[0]:
+            gi = int(gi)
+            out.extend(self._q[gi])
+            self.pending -= len(self._q[gi])
+            self._q[gi].clear()
+            self._count[gi] = 0
+        return out
+
+    def fail_all(self) -> list[PendingRead]:
+        return self.fail_lanes(np.ones(self.g, bool))
+
+
+class WaitPoints:
+    """Per-group commit-index wait-points (the follower half).
+
+    A follower read waits until the local apply frontier reaches
+    the leader-confirmed read index; ``release`` pops every waiter
+    satisfied by the advanced frontier (heap-ordered per group, so
+    the sweep never scans past the first unsatisfied index).
+    """
+
+    def __init__(self, g: int):
+        self.g = g
+        self._q: list[list[tuple[int, int, object, float]]] = [
+            [] for _ in range(g)]
+        self._count = np.zeros(g, np.int64)
+        self._seq = 0  # heap tiebreak (Chans don't compare)
+        self.pending = 0
+
+    def register(self, gi: int, index: int, ch,
+                 t0: float = 0.0) -> None:
+        self._seq += 1
+        heappush(self._q[gi], (int(index), self._seq, ch, t0))
+        self._count[gi] += 1
+        self.pending += 1
+
+    def release(self, applied: np.ndarray) -> list:
+        """Pop every waiter whose index the frontier has covered;
+        returns their channels."""
+        if not self.pending:
+            return []
+        out = []
+        mask = (self._count > 0)
+        for gi in np.nonzero(mask)[0]:
+            gi = int(gi)
+            q = self._q[gi]
+            while q and q[0][0] <= int(applied[gi]):
+                out.append(heappop(q)[2])
+                self._count[gi] -= 1
+                self.pending -= 1
+        return out
+
+    def expire(self, now: float, max_age: float) -> list:
+        """Drop waiters parked longer than ``max_age`` (their
+        callers timed out; without this sweep a stalled apply
+        frontier under a reachable leader accumulates abandoned
+        waiters without bound — the same leak ReadQueue.expire
+        plugs on the leader side).  Heap order is by index, not
+        age, so this scans and re-heapifies the touched groups —
+        callers gate it on a coarse cadence."""
+        if not self.pending:
+            return []
+        out = []
+        for gi in np.nonzero(self._count > 0)[0]:
+            gi = int(gi)
+            q = self._q[gi]
+            keep = [e for e in q if now - e[3] <= max_age]
+            if len(keep) != len(q):
+                out.extend(e[2] for e in q
+                           if now - e[3] > max_age)
+                heapify(keep)
+                self._q[gi] = keep
+                self._count[gi] = len(keep)
+        self.pending -= len(out)
+        return out
+
+    def fail_all(self) -> list:
+        out = []
+        for gi in range(self.g):
+            out.extend(e[2] for e in self._q[gi])
+            self._q[gi].clear()
+        self._count[:] = 0
+        self.pending = 0
+        return out
+
+
+def lease_drift_ticks(election: int) -> int:
+    """The clock-drift safety margin (ticks) the lease band must
+    clear: ``lease < election − drift``.  One tick absorbs scheduler
+    jitter on equal clocks; the 10% term scales with the election
+    window for real inter-host drift (the etcd clock-drift bound).
+    Shared by the runtime validation (DistServer/cli) and the
+    static lease-band checker (analysis/timeouts.py) so the two can
+    never disagree about the band."""
+    return max(1, election // 10)
+
+
+__all__ = [
+    "LeaseClock", "PendingRead", "ReadQueue", "WaitPoints",
+    "PATH_COHOSTED", "PATH_FOLLOWER", "PATH_LEASE", "PATH_QUORUM",
+    "PATH_READ_INDEX", "PATH_SERIALIZABLE", "lease_drift_ticks",
+    "serve_counter",
+]

@@ -4,7 +4,7 @@ The 0.5-alpha reference tracks only store op counters and never wires
 an HTTP stats endpoint (0.4.x had /v2/stats, documented
 in Documentation/api.md); observability is called out there as new
 work for the rebuild, so this module provides the classic field shape
-plus counters fed from the apply loop.
+plus counters fed from the apply loop and peer transport.
 """
 
 from __future__ import annotations
@@ -12,6 +12,10 @@ from __future__ import annotations
 import json
 import threading
 import time
+
+#: raft roles, indexed as ``raft/core.py`` numbers them
+STATE_FOLLOWER, STATE_CANDIDATE, STATE_LEADER = 0, 1, 2
+STATE_NAMES = ("StateFollower", "StateCandidate", "StateLeader")
 
 
 class ServerStats:
@@ -28,6 +32,23 @@ class ServerStats:
         self.leader_since = None
         self.recv_append_cnt = 0
         self.send_append_cnt = 0
+
+    def recv_append(self) -> None:
+        with self._lock:
+            self.recv_append_cnt += 1
+
+    def send_append(self) -> None:
+        with self._lock:
+            self.send_append_cnt += 1
+
+    def set_state(self, state_idx: int, leader_id: int) -> None:
+        with self._lock:
+            name = STATE_NAMES[state_idx] \
+                if 0 <= state_idx < 3 else "StateFollower"
+            if leader_id != self.leader_id or name != self.state:
+                self.leader_since = time.time()
+            self.state = name
+            self.leader_id = leader_id
 
     def to_dict(self) -> dict:
         with self._lock:

@@ -1,27 +1,201 @@
-"""Verification of a streamed snapshot's chunks (the port of
-``ChunkVerifier`` from ``etcd_tpu/snap/stream.py``).
+"""Streamed snapshot transfer: chunked, verified, resumable.
 
-A snapshot streams in fixed-size chunks, each carrying a rolling
-CRC32C chained across chunks: ``crcs[k] = update(crcs[k-1], chunk_k)``
-from 0, the WAL record chain's form.  Given its predecessor's *stored*
-value every chunk verifies on its own, so a contiguous run of received
-chunks verifies in one batch: the GF(2) seed-stitched device form
-(``ops/crc_device.inject_seeds``, then one raw-CRC kernel pass and a
-compare), or the host's seedable digest.
+The dist tier's original catch-up path pulled the donor's whole store
+as ONE blocking, unverified JSON blob (``GET /mraft/snapshot``) — a
+deep-lag peer re-pulling a multi-hundred-MB snapshot after every
+transport hiccup, with no integrity check at all.  This module is the
+snapshot analog of the streaming replay lane:
+
+- **Donor side** (:class:`SnapshotSource` + :class:`SourceCache`):
+  the serialized snapshot blob is PINNED under a unique id and served
+  in fixed-size chunks, each carrying a rolling CRC32C chained across
+  chunks (the WAL's seedable-digest chain, pkg/crc/crc.go:23, applied
+  to the snapshot byte stream).  Pinning matters because the live
+  store mutates continuously — chunk k and chunk k+1 must come from
+  the SAME serialization or the assembled blob is garbage.
+- **Receiver side** (:class:`ChunkPuller`): chunk requests ride a
+  ``peerlink.PipeChannel`` with a window of requests in flight
+  (network fetch of chunk k+w overlaps verification of chunk k); a
+  corrupt chunk is rejected and refetched (never installed), a
+  transport failure resumes from the last verified chunk over the
+  channel's automatic reconnect, and a donor that dropped the pin
+  answers 404 → the puller aborts with :class:`StaleSourceError` so
+  the caller refetches meta and restarts against a fresh pin.
+- **Verification** (:class:`ChunkVerifier`): the GF(2) seed-stitched
+  device form (ops/crc_device.inject_seeds → one raw-CRC kernel pass
+  + compare) on the caller's device, or the host's seedable digest
+  (``route="host"``) — chunk c seeds from chunk c-1's STORED value,
+  the same induction the streaming replay chain uses, so install
+  verifies at replay speed.
+
+Nothing here persists partial state: the assembled blob exists only
+in memory until the caller's install commits, so a receiver crash
+mid-stream restarts cleanly with no artifact to discard.
 """
 
 from __future__ import annotations
+
+import itertools
+import logging
+import os
+import queue
+import threading
+import time
 
 import numpy as np
 import torch
 
 from .. import default_device, native
+from ..crc import update as crc_update
+from ..obs import metrics as _obs
 from ..ops.crc_device import (
     chain_links_injected,
     inject_seeds,
     raw_crc_batch,
     u32_tensor,
 )
+from ..utils import faults as _faults
+
+log = logging.getLogger(__name__)
+
+#: chunk size of the snapshot stream; 256 KiB keeps per-chunk verify
+#: latency small against the fetch (loopback) while bounding the
+#: request count for multi-GB stores.  ETCD_SNAP_CHUNK_BYTES
+#: overrides at pin time (read per SnapshotSource so tests and
+#: drills can tune it without re-importing).
+DEFAULT_CHUNK_BYTES = 256 * 1024
+
+
+def _default_chunk_bytes() -> int:
+    return int(os.environ.get("ETCD_SNAP_CHUNK_BYTES",
+                              DEFAULT_CHUNK_BYTES))
+
+#: peer-handler paths (the dist server mounts meta/chunk as POST and
+#: the frontier probe as GET)
+META_PATH = "/mraft/snapshot/meta"
+CHUNK_PATH = "/mraft/snapshot/chunk"
+#: cheap pre-pin dominance probe: the donor's applied vector alone.
+#: A meta pin serializes + CRC-chains the donor's whole store under
+#: its lock and holds the blob pinned for the cache TTL — receivers
+#: must never pay that for a donor that cannot dominate them.
+FRONTIER_PATH = "/mraft/snapshot/frontier"
+
+_CHUNK_HIST = _obs.registry.histogram("etcd_snap_stream_chunk_seconds")
+
+
+def _install_ctr(outcome: str):
+    return _obs.registry.counter("etcd_snap_install_total",
+                                 outcome=outcome)
+
+
+class SnapStreamError(Exception):
+    """The chunk stream failed (transport, corruption budget,
+    deadline); the caller may retry against this or another donor."""
+
+
+class StaleSourceError(SnapStreamError):
+    """The donor no longer pins this source id (restart or cache
+    eviction): refetch meta and restart from a fresh pin."""
+
+
+def chunk_crcs(payload: bytes, chunk_bytes: int) -> list[int]:
+    """Rolling CRC32C chain over ``payload`` in ``chunk_bytes`` steps:
+    ``crcs[k] = update(crcs[k-1], chunk_k)`` seeded from 0 — the WAL
+    record chain's exact form, so the GF(2) seed-injection verifier
+    applies unchanged."""
+    out = []
+    prev = 0
+    for off in range(0, len(payload), chunk_bytes):
+        prev = crc_update(prev, payload[off:off + chunk_bytes])
+        out.append(prev)
+    return out
+
+
+class SnapshotSource:
+    """One pinned, chunkable snapshot byte stream (donor side)."""
+
+    _ids = itertools.count(1)
+
+    def __init__(self, payload: bytes, extra: dict | None = None,
+                 chunk_bytes: int | None = None):
+        self.payload = payload
+        self.chunk_bytes = int(chunk_bytes or _default_chunk_bytes())
+        if self.chunk_bytes < 1:
+            raise ValueError("chunk_bytes must be >= 1")
+        # unique across donor restarts: a rebooted donor must never
+        # serve a NEW pin's bytes against an OLD pin's chunk chain
+        self.id = (f"{os.getpid():x}.{int(time.time() * 1e3):x}"
+                   f".{next(self._ids)}")
+        self.extra = dict(extra or {})
+        self.crcs = chunk_crcs(payload, self.chunk_bytes)
+        self.pinned_at = time.monotonic()
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.crcs)
+
+    def meta(self) -> dict:
+        """The stream header the receiver plans the pull from."""
+        return {
+            "id": self.id,
+            "size": len(self.payload),
+            "chunk_bytes": self.chunk_bytes,
+            "n_chunks": self.n_chunks,
+            "crcs": list(self.crcs),
+            **self.extra,
+        }
+
+    def chunk(self, k: int) -> bytes:
+        if not (0 <= k < self.n_chunks):
+            raise IndexError(k)
+        off = k * self.chunk_bytes
+        return self.payload[off:off + self.chunk_bytes]
+
+
+class SourceCache:
+    """Donor-side pin registry: newest ``keep`` pins, idle-TTL-bounded
+    (``ttl_s`` of no chunk/meta activity drops a pin; active serving
+    keeps it alive however long the transfer takes).
+
+    Every meta request pins a FRESH serialization (the live store
+    moves continuously; a stale pin would install an old frontier and
+    immediately re-trigger need_snap).  Keeping the previous pin
+    alive lets a pull already in flight finish against its own chain
+    while a second peer starts on a newer one."""
+
+    def __init__(self, keep: int = 2, ttl_s: float = 300.0):
+        self.keep = keep
+        self.ttl_s = ttl_s
+        self._lock = threading.Lock()
+        self._pins: dict[str, SnapshotSource] = {}
+
+    def pin(self, src: SnapshotSource) -> SnapshotSource:
+        with self._lock:
+            self._pins[src.id] = src
+            now = time.monotonic()
+            live = sorted(self._pins.values(),
+                          key=lambda s: s.pinned_at, reverse=True)
+            keep = [s for s in live[:self.keep]
+                    if now - s.pinned_at <= self.ttl_s]
+            self._pins = {s.id: s for s in keep}
+        return src
+
+    def get(self, source_id: str) -> SnapshotSource | None:
+        with self._lock:
+            src = self._pins.get(source_id)
+            if src is None:
+                return None
+            now = time.monotonic()
+            if now - src.pinned_at > self.ttl_s:
+                self._pins.pop(source_id, None)
+                return None
+            # idle-TTL: serving refreshes the pin (and keeps it ahead
+            # in pin()'s newest-first ranking), so a transfer slower
+            # than ttl_s x bandwidth can't expire MID-STREAM and
+            # strand the receiver in refetch-from-chunk-0 churn —
+            # only ttl_s of inactivity drops a pin
+            src.pinned_at = now
+            return src
 
 
 class ChunkVerifier:
@@ -61,3 +235,234 @@ class ChunkVerifier:
             raw_crc_batch(torch.from_numpy(rows).to(self.device)),
             u32_tensor(stored, self.device))
         return [bool(x) for x in ok.cpu()]
+
+
+class ChunkPuller:
+    """Windowed chunk pull of one pinned snapshot over a peerlink
+    pipe channel (receiver side).
+
+    ``run()`` returns the assembled, fully verified payload bytes or
+    raises :class:`SnapStreamError` / :class:`StaleSourceError`.  Up
+    to ``window`` chunk requests ride the channel ahead of their
+    responses; verification consumes chunks in order (the chain), so
+    a verify of chunk k overlaps the fetch of chunks k+1..k+w.  A
+    CRC-rejected chunk is refetched (bounded by ``max_rejects``); a
+    transport failure re-requests the lost chunks over the channel's
+    automatic reconnect — resume from the last verified chunk, never
+    from scratch."""
+
+    def __init__(self, url: str, meta: dict, *, ssl_context=None,
+                 timeout: float = 1.0, window: int = 4,
+                 verifier: ChunkVerifier | None = None,
+                 max_rejects: int = 8, deadline_s: float = 300.0,
+                 stall_s: float = 20.0, abort=None,
+                 on_reject=None, name: str = "snapstream"):
+        from ..server.peerlink import PipeChannel
+
+        self.meta = meta
+        self._abort = abort or (lambda: False)
+        # fired per rejected chunk index: the receiving server's
+        # flight recorder rides this so chunk_reject outcomes reach
+        # its black box too (the metric alone is process-wide)
+        self._on_reject = on_reject or (lambda k: None)
+        self.n = int(meta["n_chunks"])
+        self.size = int(meta["size"])
+        self.chunk_bytes = int(meta["chunk_bytes"])
+        self.crcs = [int(c) for c in meta["crcs"]]
+        if len(self.crcs) != self.n:
+            raise SnapStreamError("meta crcs/n_chunks mismatch")
+        self.source_id = str(meta["id"])
+        self.window = max(1, window)
+        self.max_rejects = max_rejects
+        self.deadline_s = deadline_s
+        self.stall_s = min(stall_s, deadline_s)
+        self.verifier = verifier or ChunkVerifier()
+        self._events: queue.Queue = queue.Queue()
+        self._chan = PipeChannel(
+            url, CHUNK_PATH, stripes=1, timeout=timeout,
+            read_timeout=max(4.0 * timeout, 10.0),
+            ssl_context=ssl_context,
+            on_resp=lambda seq, status, body:
+                self._events.put(("resp", seq, status, body)),
+            on_fail=lambda seqs, reason:
+                self._events.put(("fail", seqs, reason)),
+            name=name)
+
+    def close(self) -> None:
+        self._chan.close()
+
+    def _request(self, k: int) -> None:
+        self._chan.send(k, f"{self.source_id} {k}".encode())
+
+    def run(self) -> bytes:
+        if self.n == 0:
+            return b""
+        deadline = time.monotonic() + self.deadline_s
+        buffered: dict[int, bytes] = {}
+        outstanding: set[int] = set()
+        t_req: dict[int, float] = {}
+        rejects = 0
+        fail_streak = 0       # consecutive transport-failure events
+        last_progress = time.monotonic()
+        next_send = 0
+        next_verify = 0
+        out = bytearray()
+
+        def send_window():
+            nonlocal next_send
+            while (len(outstanding) < self.window
+                   and next_send < self.n):
+                k = next_send
+                next_send += 1
+                if k < next_verify or k in buffered:
+                    continue  # verified/arrived already (resume path)
+                outstanding.add(k)
+                t_req.setdefault(k, time.monotonic())
+                self._request(k)
+
+        def refetch(k: int) -> None:
+            if k < next_verify or k in buffered:
+                return
+            outstanding.add(k)
+            t_req[k] = time.monotonic()
+            self._request(k)
+
+        send_window()
+        while next_verify < self.n:
+            if self._abort():
+                raise SnapStreamError("aborted (server stopping)")
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise SnapStreamError(
+                    f"snapshot stream deadline exceeded at chunk "
+                    f"{next_verify}/{self.n}")
+            try:
+                ev = self._events.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                continue
+            kind = ev[0]
+            if kind == "fail":
+                _, seqs, reason = ev
+                live = [k for k in seqs
+                        if k in outstanding and k not in buffered]
+                if live:
+                    # the stream aborts on STALL, not on a failure
+                    # count: a donor outage shorter than stall_s is
+                    # ridden out and resumed from the verified
+                    # frontier (only the lost chunks re-request,
+                    # never the prefix).  The paced retry keeps a
+                    # fast-failing donor from being hammered.
+                    fail_streak += 1
+                    if (time.monotonic() - last_progress
+                            > self.stall_s):
+                        raise SnapStreamError(
+                            f"no verified chunk for {self.stall_s:g}s"
+                            f" ({reason}); aborting at "
+                            f"{next_verify}/{self.n}")
+                    if self._abort():
+                        raise SnapStreamError(
+                            "aborted (server stopping)")
+                    time.sleep(min(0.02 * fail_streak, 0.3))
+                    for k in live:
+                        outstanding.discard(k)
+                    for k in live:
+                        refetch(k)
+                continue
+            _, k, status, body = ev
+            # receiver-side failpoint: drop loses this
+            # response (paced refetch recovers, same as a transport
+            # hiccup); corrupt flips a byte INTO the CRC verifier —
+            # the reject+refetch path, without donor cooperation
+            try:
+                act = _faults.hit("snapstream.pull")
+            except OSError as e:
+                raise SnapStreamError(
+                    f"injected pull fault: {e}") from e
+            if act == _faults.DROP:
+                outstanding.discard(k)
+                fail_streak += 1
+                time.sleep(min(0.02 * fail_streak, 0.3))
+                refetch(k)
+                continue
+            if act == _faults.CORRUPT:
+                body = _faults.flip_byte(body)
+            if status in (404, 410):
+                raise StaleSourceError(
+                    f"donor no longer pins source {self.source_id}")
+            if status != 200:
+                outstanding.discard(k)
+                fail_streak += 1
+                if time.monotonic() - last_progress > self.stall_s:
+                    raise SnapStreamError(
+                        f"donor answering {status} persistently")
+                time.sleep(min(0.02 * fail_streak, 0.3))
+                refetch(k)
+                continue
+            if k not in outstanding or k < next_verify:
+                continue  # duplicate / already-verified chunk
+            outstanding.discard(k)
+            buffered[k] = body
+            # verify the contiguous run now available — one batch
+            # through the routed verifier (device: one matmul)
+            run_ks = []
+            while (next_verify + len(run_ks)) in buffered:
+                run_ks.append(next_verify + len(run_ks))
+            if not run_ks:
+                send_window()
+                continue
+            datas = [buffered[j] for j in run_ks]
+            prevs = [self.crcs[j - 1] if j else 0 for j in run_ks]
+            stored = [self.crcs[j] for j in run_ks]
+            now = time.monotonic()
+            oks = self.verifier.verify(datas, prevs, stored)
+            for j, okd in zip(run_ks, oks):
+                if not okd:
+                    # corrupt chunk: reject + refetch, NEVER install
+                    _install_ctr("chunk_reject").inc()
+                    self._on_reject(j)
+                    rejects += 1
+                    log.warning(
+                        "snapstream: chunk %d/%d failed rolling-CRC "
+                        "verify; refetching (reject %d/%d)", j,
+                        self.n, rejects, self.max_rejects)
+                    if rejects > self.max_rejects:
+                        raise SnapStreamError(
+                            f"chunk {j} rejected past the "
+                            f"corruption budget")
+                    del buffered[j]
+                    refetch(j)
+                    break
+                expect = (self.chunk_bytes
+                          if j < self.n - 1 else
+                          self.size - (self.n - 1) * self.chunk_bytes)
+                if len(buffered[j]) != expect:
+                    raise SnapStreamError(
+                        f"chunk {j} size {len(buffered[j])} != "
+                        f"{expect}")
+                out += buffered.pop(j)
+                next_verify = j + 1
+                fail_streak = 0
+                last_progress = now
+                t0 = t_req.pop(j, None)
+                if t0 is not None:
+                    _CHUNK_HIST.observe(now - t0)
+            send_window()
+        if len(out) != self.size:
+            raise SnapStreamError(
+                f"assembled {len(out)} bytes != meta size {self.size}")
+        return bytes(out)
+
+
+__all__ = [
+    "CHUNK_PATH",
+    "ChunkPuller",
+    "ChunkVerifier",
+    "DEFAULT_CHUNK_BYTES",
+    "FRONTIER_PATH",
+    "META_PATH",
+    "SnapStreamError",
+    "SnapshotSource",
+    "SourceCache",
+    "StaleSourceError",
+    "chunk_crcs",
+]

@@ -1,18 +1,52 @@
-"""Named failpoints of the WAL's I/O seams, and the fail-stop exit.
+"""Deterministic fault-injection framework.
 
-The port's copy of the part of ``etcd_tpu/utils/faults.py`` that the WAL
-and the snapshotter call, with the same failpoint names.  A seam calls
-``hit("wal.fsync")``; a configured rule makes that call raise
-``OSError(errno)``: ``err(EIO)`` or ``enospc()``, on every matching
-call or, with ``once``, on the first only.  Rules come from a spec
-string such as ``"wal.fsync=err(EIO,once);wal.append=enospc()"`` set
-with :func:`configure`.  Every activation is counted in
-``etcd_fault_injected_total{point,action}``.
+Every failure the chaos suite could produce before this module was
+fail-stop (kill -9) or a one-shot seeded corruption hook; real
+deployments die of *gray* failures — fsync returning EIO (after
+which retrying fsync silently loses data), disks filling up, links
+that are slow or one-directional rather than dead.  This module is
+the process-wide registry of **named, vocab-checked failpoints**
+threaded through every I/O seam (the gofail lineage, specialized):
 
-:func:`fail_stop` is the one exit taken when an fsync fails with
-anything but ENOSPC: after a failed fsync the kernel may have dropped
-the dirty pages while a retry reports success, so the process exits
-(status :data:`FAIL_STOP_EXIT`) instead of retrying into silent loss.
+- The closed :data:`FAULT_CATALOG` names every failpoint; a seam
+  calls ``_faults.hit("wal.fsync", ...)`` and the ``fault-vocabulary``
+  lint rule (analysis/faultvocab.py) rejects names outside the
+  catalog — the README's failpoint table can never drift from the
+  code, exactly like the metrics vocabulary.
+- Activation comes from a compact spec string
+  (``ETCD_FAULTS="wal.fsync=err(EIO,once);``
+  ``peerlink.send[s2->s1]=delay(50ms,p=0.3)"``), settable at process
+  start via the env or at runtime via ``POST /mraft/faults`` (the
+  nemesis drill flips faults on and off mid-run).
+- Actions: ``err(ERRNO)`` raise ``OSError(errno.ERRNO)``;
+  ``enospc()`` sugar for ``err(ENOSPC)`` with its own counter label;
+  ``delay(50ms)`` sleep then proceed; ``drop()`` / ``corrupt()``
+  return a marker the seam interprets (lose the frame / flip a
+  byte).  Qualifiers: ``once`` | ``times=N`` | ``p=F`` | ``after=N``
+  (skip the first N matching calls) | ``for=DUR`` (active window
+  starting at the first eligible hit).
+- Determinism: the registry seeds one RNG per rule from
+  ``(seed, rule index, point)`` — ``ETCD_FAULTS_SEED`` or
+  ``configure(seed=)``, defaulting to a CRC of the spec — so a
+  replayed seed reproduces ``once``/``after``/``times`` injections
+  exactly and ``p=`` draws per-rule-deterministically (concurrent
+  seams interleave draws, so ``p=`` counts are reproducible in
+  distribution, exact gates should use ``once``/``times``).
+- Billing: every activation lands in
+  ``etcd_fault_injected_total{point,action}`` AND as a ``fault``
+  event in every attached flight recorder, so stitched traces
+  attribute failures to injections.
+
+**Fail-stop** also lives here: :func:`fail_stop` is the one exit a
+server takes when an fsync fails with anything but ENOSPC — it dumps
+the attached flight rings and ``os._exit(FAIL_STOP_EXIT)``, never
+returning, because a retried fsync can report success while the
+kernel already dropped the dirty pages (the post-fsync-error loss
+class etcd grew panic-on-fsync-error for).  ENOSPC at *write* time
+is the one I/O error that degrades gracefully instead (see
+utils/errors.EtcdNoSpace and the WAL's rollback).
+
+Stdlib-only by design: imported by the WAL/peerlink/HTTP hot paths.
 """
 
 from __future__ import annotations
@@ -20,30 +54,72 @@ from __future__ import annotations
 import errno as _errno
 import logging
 import os
+import random
 import sys
+import threading
+import time
+import zlib
 
 from ..obs import metrics as _obs
 
 log = logging.getLogger(__name__)
 
-#: process exit status of a fail-stop
+#: process exit status of a fail-stop (distinct from crash/SIGKILL so
+#: drills can assert the exit was the deliberate fail-stop path)
 FAIL_STOP_EXIT = 66
 
-#: the failpoint vocabulary of the seams the port has
+#: the closed failpoint vocabulary — every ``hit()`` call site must
+#: name one of these (fault-vocabulary lint rule); the README
+#: "Fault injection" table mirrors it
 FAULT_CATALOG: dict[str, str] = {
-    "fsio.fsync": "file-content fsync helper (torn-tail repair); err => "
-                  "fail-stop, enospc => EtcdNoSpace",
-    "fsio.fsync_dir": "directory-entry fsync; injected errors are "
-                      "swallowed (activation still counted)",
-    "wal.append": "WAL.save entry (before any byte is written) + the "
-                  "NOSPACE recovery probe",
-    "wal.fsync": "WAL.sync before os.fsync; err(EIO) here must produce a "
-                 "fail-stop exit",
+    "fsio.fsync": (
+        "file-content fsync helper (snapshotter save, torn-tail "
+        "repair); err => fail-stop, enospc => EtcdNoSpace"),
+    "fsio.fsync_dir": (
+        "directory-entry fsync; injected errors follow the "
+        "reference's swallow contract (activation still counted)"),
+    "wal.append": (
+        "WAL.save entry (before any byte is written) + the NOSPACE "
+        "recovery probe; enospc here is the clean degradation path"),
+    "wal.fsync": (
+        "WAL.sync before os.fsync — the Ready-contract durability "
+        "step; err(EIO) here must produce a fail-stop exit"),
     "wal.cut": "WAL segment cut entry",
     "wal.gc": "WAL segment GC entry",
-    "snap.save": "Snapshotter save entry (before the file is opened); "
-                 "enospc => EtcdNoSpace, err => fail-stop",
+    "snap.save": "snapshotter._save entry (write+fsync of a .snap)",
+    "snapstream.serve": (
+        "donor-side snapshot chunk serve (corrupt => one flipped "
+        "byte, the receiver must reject+refetch)"),
+    "snapstream.pull": (
+        "receiver-side chunk arrival (drop => lost response, "
+        "corrupt => flipped byte into the CRC verifier)"),
+    "peerlink.send": (
+        "outbound peer frame, per [src->dst]: channel writer + "
+        "synchronous keep-alive POSTs (drop = silent loss — only "
+        "the expire sweep recovers)"),
+    "peerlink.recv": (
+        "inbound peer traffic, per [src->dst]: pushed frames at the "
+        "handler AND ack/vote responses at the receiving client — "
+        "[*->sN]=drop() is node N's inbound half of an asymmetric "
+        "partition"),
+    "http.client": "client API handler entry (v2 surface)",
+    "http.peer": "peer HTTP handler entry (/mraft surface)",
+    "frontdoor.accept": (
+        "event-driven front door accept path: drop/err => "
+        "the accepted socket is closed before any byte, delay "
+        "stalls the accept (a slow front end)"),
+    "frontdoor.read": (
+        "front-door per-connection read-ready path: drop => the "
+        "connection is torn down mid-request, err => typed 503, "
+        "delay stalls the event loop (global slowdown — overload "
+        "composition drills use this)"),
 }
+
+_ACTIONS = ("err", "enospc", "delay", "drop", "corrupt")
+
+#: markers ``hit()`` returns for the seam to interpret
+DROP = "drop"
+CORRUPT = "corrupt"
 
 
 class FaultSpecError(ValueError):
@@ -52,96 +128,354 @@ class FaultSpecError(ValueError):
 
 class FailStopError(RuntimeError):
     """Raised instead of exiting when a test hook replaces the
-    fail-stop exit (:func:`set_fail_stop`)."""
+    fail-stop exit (set_fail_stop) — control must still never
+    return to the failing I/O path."""
+
+
+def _parse_duration(tok: str) -> float:
+    """``50ms`` | ``2s`` | bare seconds float."""
+    t = tok.strip().lower()
+    try:
+        if t.endswith("ms"):
+            return float(t[:-2]) / 1e3
+        if t.endswith("s"):
+            return float(t[:-1])
+        return float(t)
+    except ValueError:
+        raise FaultSpecError(f"bad duration {tok!r}") from None
 
 
 class _Rule:
-    """One parsed failpoint rule: raise ``OSError(err_no)`` at
-    ``point``, once or on every call."""
+    """One parsed failpoint rule with its activation gates."""
 
-    def __init__(self, point: str, action: str, args: list[str],
-                 spec: str):
-        self.point, self.action, self.spec = point, action, spec
-        args = [a.strip() for a in args if a.strip()]
-        self.once = "once" in args
-        names = [a for a in args if a != "once"]
-        if action == "enospc" and not names:
+    __slots__ = ("point", "src", "dst", "action", "err_no",
+                 "delay_s", "p", "times", "after", "for_s", "spec",
+                 "_rng", "_lock", "_calls", "_fired", "_armed_at")
+
+    def __init__(self, point: str, src: str | None, dst: str | None,
+                 action: str, args: list[str], spec: str,
+                 seed: int, index: int):
+        self.point, self.src, self.dst = point, src, dst
+        self.action = action
+        self.spec = spec
+        self.err_no: int | None = None
+        self.delay_s = 0.0
+        self.p: float | None = None
+        self.times: int | None = None
+        self.after = 0
+        self.for_s: float | None = None
+        pos: list[str] = []
+        for tok in args:
+            tok = tok.strip()
+            if not tok:
+                continue
+            if tok == "once":
+                self.times = 1
+            elif tok.startswith("p="):
+                self.p = float(tok[2:])
+                if not (0.0 < self.p <= 1.0):
+                    raise FaultSpecError(f"p={self.p} not in (0, 1]")
+            elif tok.startswith("times="):
+                self.times = int(tok[6:])
+            elif tok.startswith("after="):
+                self.after = int(tok[6:])
+            elif tok.startswith("for="):
+                self.for_s = _parse_duration(tok[4:])
+            else:
+                pos.append(tok)
+        if action == "err":
+            if len(pos) != 1:
+                raise FaultSpecError(
+                    f"err() takes exactly one errno name: {spec}")
+            no = getattr(_errno, pos[0].upper(), None)
+            if not isinstance(no, int):
+                raise FaultSpecError(f"unknown errno {pos[0]!r}")
+            self.err_no = no
+        elif action == "enospc":
+            if pos:
+                raise FaultSpecError(f"enospc() takes no value: {spec}")
             self.err_no = _errno.ENOSPC
-        elif action == "err" and len(names) == 1 \
-                and isinstance(getattr(_errno, names[0].upper(), None), int):
-            self.err_no = getattr(_errno, names[0].upper())
-        else:
-            raise FaultSpecError(f"bad arguments in {spec!r}")
-        self.spent = False
+        elif action == "delay":
+            if len(pos) != 1:
+                raise FaultSpecError(
+                    f"delay() takes exactly one duration: {spec}")
+            self.delay_s = _parse_duration(pos[0])
+        elif pos:
+            raise FaultSpecError(
+                f"{action}() takes no positional value: {spec}")
+        # per-rule deterministic RNG: draws do not depend on other
+        # rules' call ordering
+        self._rng = random.Random(f"{seed}:{index}:{point}")
+        self._lock = threading.Lock()
+        self._calls = 0
+        self._fired = 0
+        self._armed_at: float | None = None
+
+    def matches(self, point: str, src: str | None,
+                dst: str | None) -> bool:
+        if point != self.point:
+            return False
+        if self.src not in (None, "*") and src != self.src:
+            return False
+        if self.dst not in (None, "*") and dst != self.dst:
+            return False
+        return True
+
+    def fire(self, now: float) -> bool:
+        """Evaluate the gates for one matching call; True when the
+        action activates (exactly-once semantics for once/times)."""
+        with self._lock:
+            self._calls += 1
+            if self._calls <= self.after:
+                return False
+            if self.for_s is not None:
+                if self._armed_at is None:
+                    self._armed_at = now
+                elif now - self._armed_at > self.for_s:
+                    return False
+            if self.times is not None and self._fired >= self.times:
+                return False
+            if self.p is not None and self._rng.random() >= self.p:
+                return False
+            self._fired += 1
+            return True
 
 
-def _parse_spec(spec: str) -> tuple[_Rule, ...]:
-    rules = []
-    for part in (p.strip() for p in spec.split(";") if p.strip()):
-        point, sep, rhs = (x.strip() for x in part.partition("="))
+def _parse_spec(spec: str, seed: int) -> tuple[_Rule, ...]:
+    rules: list[_Rule] = []
+    for i, part in enumerate(p for p in spec.split(";")
+                             if p.strip()):
+        part = part.strip()
+        lhs, sep, rhs = part.partition("=")
         if not sep:
             raise FaultSpecError(f"missing '=' in {part!r}")
+        lhs = lhs.strip()
+        src = dst = None
+        if lhs.endswith("]") and "[" in lhs:
+            lhs, _, qual = lhs[:-1].partition("[")
+            s, arrow, d = qual.partition("->")
+            if not arrow:
+                raise FaultSpecError(
+                    f"qualifier {qual!r} must be src->dst")
+            src, dst = s.strip(), d.strip()
+        point = lhs.strip()
         if point not in FAULT_CATALOG:
-            raise FaultSpecError(f"unknown failpoint {point!r}")
-        action, _, argstr = rhs.removesuffix(")").partition("(")
-        if action.strip() not in ("err", "enospc"):
-            raise FaultSpecError(f"unknown action {action!r}")
-        rules.append(_Rule(point, action.strip(), argstr.split(","), part))
+            raise FaultSpecError(
+                f"unknown failpoint {point!r} (not in FAULT_CATALOG)")
+        rhs = rhs.strip()
+        if rhs.endswith(")") and "(" in rhs:
+            action, _, argstr = rhs[:-1].partition("(")
+            args = argstr.split(",") if argstr.strip() else []
+        else:
+            action, args = rhs, []
+        action = action.strip()
+        if action not in _ACTIONS:
+            raise FaultSpecError(
+                f"unknown action {action!r} (know {_ACTIONS})")
+        rules.append(_Rule(point, src, dst, action, args, part,
+                           seed, i))
     return tuple(rules)
 
 
-_rules: tuple[_Rule, ...] = ()
+class FaultRegistry:
+    """Process-wide failpoint state: parsed rules, activation
+    counters, attached flight-recorder sinks."""
+
+    def __init__(self, registry: _obs.Registry | None = None):
+        self._reg = registry if registry is not None \
+            else _obs.registry
+        self._lock = threading.Lock()
+        self._rules: tuple[_Rule, ...] = ()
+        self._spec = ""
+        self.seed = 0
+        self._sinks: list[object] = []
+        self._counts: dict[tuple[str, str], int] = {}
+        self._ctrs: dict[tuple[str, str], object] = {}
+
+    # -- configuration ----------------------------------------------------
+
+    def configure(self, spec: str, seed: int | None = None) -> None:
+        """Replace the active rule set with ``spec`` (empty clears).
+        Raises :class:`FaultSpecError` on any bad name — a typo'd
+        failpoint must fail loudly, never inject nothing silently."""
+        spec = (spec or "").strip()
+        if seed is None:
+            env = os.environ.get("ETCD_FAULTS_SEED")
+            seed = (int(env) if env
+                    else zlib.crc32(spec.encode()) or 1)
+        rules = _parse_spec(spec, seed)
+        with self._lock:
+            self._rules = rules
+            self._spec = spec
+            self.seed = seed
+        if spec:
+            log.warning("faults: armed seed=%d spec=%r", seed, spec)
+        else:
+            log.info("faults: cleared")
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rules = ()
+            self._spec = ""
+
+    def reset_counts(self) -> None:
+        with self._lock:
+            self._counts = {}
+
+    @property
+    def spec(self) -> str:
+        return self._spec
+
+    def attach_sink(self, recorder) -> None:
+        """Register a flight recorder: activations are recorded as
+        ``fault`` events and fail-stop dumps its ring."""
+        with self._lock:
+            if recorder not in self._sinks:
+                self._sinks.append(recorder)
+
+    def detach_sink(self, recorder) -> None:
+        with self._lock:
+            if recorder in self._sinks:
+                self._sinks.remove(recorder)
+
+    # -- the seam call ----------------------------------------------------
+
+    def hit(self, point: str, src: str | None = None,
+            dst: str | None = None) -> str | None:
+        """One failpoint crossing.  Returns ``None`` (proceed),
+        ``"drop"`` or ``"corrupt"`` (seam interprets); sleeps for
+        ``delay``; raises ``OSError(errno)`` for ``err``/``enospc``.
+        The no-rules fast path is one tuple read."""
+        rules = self._rules
+        if not rules:
+            return None
+        out: str | None = None
+        now = time.monotonic()
+        for rule in rules:
+            if not rule.matches(point, src, dst):
+                continue
+            if not rule.fire(now):
+                continue
+            self._bill(rule, src, dst)
+            if rule.action == "delay":
+                time.sleep(rule.delay_s)
+                continue  # delayed but proceeding; later rules apply
+            if rule.action in ("err", "enospc"):
+                raise OSError(
+                    rule.err_no,
+                    f"fault injected: {rule.spec}")
+            out = DROP if rule.action == "drop" else CORRUPT
+            break
+        return out
+
+    def _bill(self, rule: _Rule, src, dst) -> None:
+        key = (rule.point, rule.action)
+        ctr = self._ctrs.get(key)
+        if ctr is None:
+            ctr = self._ctrs[key] = self._reg.counter(
+                "etcd_fault_injected_total", point=rule.point,
+                action=rule.action)
+        ctr.inc()
+        with self._lock:
+            self._counts[key] = self._counts.get(key, 0) + 1
+            sinks = list(self._sinks)
+        for r in sinks:
+            try:
+                r.record("fault", point=rule.point,
+                         action=rule.action, src=src, dst=dst)
+            except Exception:  # pragma: no cover - sink bug
+                pass
+
+    # -- introspection (GET /mraft/faults) --------------------------------
+
+    def injected(self) -> dict[str, int]:
+        with self._lock:
+            return {f"{p}={a}": n
+                    for (p, a), n in sorted(self._counts.items())}
+
+    def snapshot(self) -> dict:
+        return {"spec": self._spec, "seed": self.seed,
+                "injected": self.injected()}
 
 
-def configure(spec: str) -> None:
-    """Replace the active rule set with ``spec`` (empty clears).  Raises
-    :class:`FaultSpecError` on any bad name."""
-    global _rules
-    _rules = _parse_spec((spec or "").strip())
+#: THE process-wide registry (armed from ETCD_FAULTS at import so a
+#: spawned server needs no extra wiring)
+FAULTS = FaultRegistry()
+if os.environ.get("ETCD_FAULTS"):
+    FAULTS.configure(os.environ["ETCD_FAULTS"])
+
+
+def hit(point: str, src: str | None = None,
+        dst: str | None = None) -> str | None:
+    """Module-level seam call (``_faults.hit("wal.fsync")``)."""
+    return FAULTS.hit(point, src=src, dst=dst)
+
+
+def configure(spec: str, seed: int | None = None) -> None:
+    """Module-level ``FAULTS.configure``."""
+    FAULTS.configure(spec, seed=seed)
 
 
 def clear() -> None:
-    configure("")
+    """Module-level ``FAULTS.clear``."""
+    FAULTS.clear()
 
 
-def hit(point: str) -> None:
-    """One failpoint crossing: returns to proceed, raises
-    ``OSError(errno)`` where a rule fires.  The no-rules path is one
-    tuple read."""
-    for rule in _rules:
-        if rule.point != point or rule.spent:
-            continue
-        rule.spent = rule.once
-        _obs.registry.counter("etcd_fault_injected_total", point=point,
-                              action=rule.action).inc()
-        raise OSError(rule.err_no, f"fault injected: {rule.spec}")
+def flip_byte(payload, index: int = -1) -> bytes:
+    """The one-byte corruption the ``corrupt`` action applies."""
+    b = bytearray(payload)
+    if b:
+        b[index] ^= 0xFF
+    return bytes(b)
 
+
+# -- fail-stop ---------------------------------------------------------------
 
 _fail_stop_hook = None
 
 
 def set_fail_stop(fn):
     """Test hook: replace the process exit.  The hook runs, then
-    :class:`FailStopError` is raised so control still never returns to
-    the failing I/O path.  Returns the previous hook."""
+    :class:`FailStopError` is raised so control still never returns
+    to the failing I/O path.  Returns the previous hook."""
     global _fail_stop_hook
     prev, _fail_stop_hook = _fail_stop_hook, fn
     return prev
 
 
 def fail_stop(reason: str, exc: BaseException | None = None):
-    """Terminal exit for unrecoverable I/O errors (fsync EIO):
-    ``os._exit(FAIL_STOP_EXIT)``, never a retry."""
+    """Terminal exit for unrecoverable I/O errors (fsync EIO): dump
+    every attached flight ring, then ``os._exit(FAIL_STOP_EXIT)`` —
+    NEVER retry into silent loss, never ack another write.  The
+    post-fsync-failure page cache may already have dropped the dirty
+    data while a retried fsync reports success; the only honest
+    state is down."""
     log.critical("FAIL-STOP: %s (%s)", reason,
                  exc if exc is not None else "no exception")
     if _fail_stop_hook is not None:
-        _fail_stop_hook(reason, exc)
+        try:
+            _fail_stop_hook(reason, exc)
+        finally:
+            pass
         raise FailStopError(reason)
+    directory = (os.environ.get("ETCD_FLIGHT_DIR")
+                 or "trace_artifacts")
+    with FAULTS._lock:
+        sinks = list(FAULTS._sinks)
+    for r in sinks:
+        try:
+            r.record("failstop", reason=reason)
+            path = r.dump_to(directory, tag="failstop")
+            print(f"flight: dumped failstop ring to {path}",
+                  file=sys.stderr, flush=True)
+        except Exception:  # pragma: no cover - disk-dead last gasp
+            pass
     sys.stderr.flush()
     os._exit(FAIL_STOP_EXIT)
 
 
 __all__ = [
-    "FAIL_STOP_EXIT", "FAULT_CATALOG", "FailStopError", "FaultSpecError",
-    "clear", "configure", "fail_stop", "hit", "set_fail_stop",
+    "CORRUPT", "DROP", "FAIL_STOP_EXIT", "FAULTS", "FAULT_CATALOG",
+    "FailStopError", "FaultRegistry", "FaultSpecError", "clear",
+    "configure", "fail_stop", "flip_byte", "hit", "set_fail_stop",
 ]

@@ -1,0 +1,455 @@
+"""Declarative wire-frame schemas — the single source of truth for
+every binary layout the serving path speaks.
+
+Five hand-rolled formats cross process and host boundaries: DGB2/DGB3
+peer frames (``wire/distmsg.py``), the DCB1 client protocol
+(``wire/clientmsg.py``), DRH1 role handoff (``wire/rolemsg.py``), the
+gogoproto codec (``wire/proto.py``), and the SRG1 shm segment layout
+(``server/shmring.py``).  Each used to carry its magic, struct format
+strings, flag bits, and plausibility caps as module-private literals
+maintained by hand in marshal/unmarshal pairs.  This module makes the
+layouts first-class data:
+
+  * ``FrameSchema`` declares magic, the header struct format with
+    named fields, frame kinds with their ordered sections, flag bits
+    mapped to the optional trailing section they gate, and — for the
+    fixed-offset SRG1 header — the field offset table.
+  * ``Bound`` annotates every wire length/count field with its
+    plausibility cap (the ``implausible trace count`` guard that
+    existed for exactly one field pre-PR-19, made total) and the
+    parse scope expected to enforce it.  ``check_bound`` is the one
+    enforcement call sites use; the wire-bounds checker
+    (analysis/wirebounds.py) closes the vocabulary: every declared
+    bound must be checked in its scope, and every checked name must
+    be declared here.
+  * The parser modules import their structs/magic/constants FROM this
+    module; the schema-drift checker (analysis/schemadrift.py) fails
+    lint on a locally re-declared layout literal and on
+    marshal/unmarshal asymmetry against the declared sections.
+  * The schema-driven fuzzer (scripts/wire_fuzz.py) generates its
+    mutations — truncation at every boundary, flag flips, count-field
+    extremes, signed overflows — from these declarations, asserting
+    every failure is the format's typed error.
+
+Grammar, informally::
+
+  FrameSchema(name, module, magic, error,
+              header="<struct fmt>", header_fields=(names...),
+              count_fields=(header fields that are counts...),
+              kinds=(Kind(name, value, cls?, marshal?, unmarshal?,
+                          sections=(Section(name, elem, rname?)...)),),
+              flags=(Flag(name, bit, section, scope)...),
+              structs={module const: struct fmt},
+              offsets={field: byte offset},     # SRG1 only
+              bounds=(Bound(name, cap, scope)...),
+              parse_scopes=(entry scopes...))
+
+``error`` names the typed exception family every parse failure must
+surface as (``FrameError`` for the frame formats, ``ProtoError`` for
+the codec); anything else escaping a parse scope is a frame-totality
+finding and a fuzzer crasher.
+"""
+
+from __future__ import annotations
+
+import re
+import struct
+from dataclasses import dataclass, field
+
+
+class FrameError(Exception):
+    """Typed parse failure for the frame formats (DGB2/DCB1/DRH1/
+    SRG1).  Lives here — the root of the wire layer — so the schema's
+    ``check_bound`` can raise it without importing a parser module;
+    ``wire/distmsg.py`` re-exports it for the historical import
+    path."""
+
+
+@dataclass(frozen=True)
+class Section:
+    """One ordered body section of a frame kind.  ``elem`` is the
+    element layout (i32 | i64 | u8 | u32 | f64 | blob | struct:NAME);
+    ``rname`` is the unmarshal-side local name when it differs from
+    the dataclass attribute (drift checking matches both sides)."""
+
+    name: str
+    elem: str
+    rname: str = ""
+
+    @property
+    def read_name(self) -> str:
+        return self.rname or self.name
+
+
+@dataclass(frozen=True)
+class Kind:
+    """A frame kind: the wire constant, the dataclass that carries it
+    (when one exists), its marshal/unmarshal scopes, and the ordered
+    sections between header and trailing flag blocks."""
+
+    name: str
+    value: int
+    cls: str = ""
+    marshal: str = ""
+    unmarshal: str = ""
+    sections: tuple[Section, ...] = ()
+
+
+@dataclass(frozen=True)
+class Flag:
+    """A header flag bit and the optional trailing section it gates.
+    ``scope`` names the parse scope that must test the bit; "" means
+    the bit is carried for a downstream consumer (reply-shape bits)
+    and parse-side handling is not required."""
+
+    name: str
+    bit: int
+    section: str = ""
+    scope: str = ""
+
+
+@dataclass(frozen=True)
+class Bound:
+    """Plausibility cap for one wire length/count field.  ``name`` is
+    the dotted catalog key ("<format>.<field>"); ``scope`` the parse
+    scope expected to enforce it ("" = anywhere in the module).  Caps
+    are generous sanity limits — a 24-byte hostile frame must never
+    drive a multi-GiB allocation — never tight operational limits."""
+
+    name: str
+    cap: int
+    scope: str = ""
+    doc: str = ""
+
+
+@dataclass(frozen=True)
+class ProtoField:
+    """One gogoproto message field: number, attribute name, wire
+    type, and whether the marshaler emits it conditionally."""
+
+    fnum: int
+    name: str
+    wt: int
+    optional: bool = False
+
+    @property
+    def tag(self) -> int:
+        return (self.fnum << 3) | self.wt
+
+
+@dataclass(frozen=True)
+class ProtoMessage:
+    cls: str
+    fields: tuple[ProtoField, ...]
+
+
+@dataclass(frozen=True)
+class FrameSchema:
+    name: str
+    module: str
+    magic: bytes | int
+    error: str
+    header: str = ""
+    header_fields: tuple[str, ...] = ()
+    header_size: int = 0
+    count_fields: tuple[str, ...] = ()
+    kinds: tuple[Kind, ...] = ()
+    flags: tuple[Flag, ...] = ()
+    structs: dict[str, str] = field(default_factory=dict)
+    offsets: dict[str, int] = field(default_factory=dict)
+    bounds: tuple[Bound, ...] = ()
+    messages: tuple[ProtoMessage, ...] = ()
+    parse_scopes: tuple[str, ...] = ()
+
+    def header_struct(self) -> struct.Struct:
+        return struct.Struct(self.header)
+
+    def header_offsets(self) -> dict[str, tuple[int, int, bool]]:
+        """{field: (byte offset, width, signed)} for the packed
+        header — the fuzzer writes count-field extremes through
+        this."""
+        out: dict[str, tuple[int, int, bool]] = {}
+        pos = 0
+        toks = re.findall(r"(\d*)([a-zA-Z])", self.header)
+        for name, (rep, ch) in zip(self.header_fields, toks):
+            fmt = "<" + (rep + ch if ch == "s" else ch)
+            width = struct.calcsize(fmt)
+            out[name] = (pos, width, ch in "bhilq")
+            pos += width
+        return out
+
+    def kind_values(self) -> dict[str, int]:
+        return {k.name: k.value for k in self.kinds}
+
+
+# ---------------------------------------------------------------------------
+# the five formats
+# ---------------------------------------------------------------------------
+
+DGB2 = FrameSchema(
+    name="DGB2",
+    module="etcd_tpu/wire/distmsg.py",
+    magic=b"DGB2",
+    error="FrameError",
+    header="<4sBBHIIII",
+    header_fields=("magic", "kind", "sender", "flags",
+                   "g", "e", "seq", "epoch"),
+    count_fields=("g", "e"),
+    kinds=(
+        Kind("KIND_APPEND", 0, cls="AppendBatch",
+             marshal="AppendBatch.marshal",
+             unmarshal="AppendBatch.unmarshal",
+             sections=(Section("term", "i32"),
+                       Section("prev_idx", "i32"),
+                       Section("prev_term", "i32"),
+                       Section("n_ents", "i32"),
+                       Section("commit", "i32"),
+                       Section("ent_terms", "i32", rname="ets"),
+                       Section("lens", "i32"),
+                       Section("active", "u8"),
+                       Section("need_snap", "u8"),
+                       Section("payloads", "blob"))),
+        Kind("KIND_APPEND_RESP", 1, cls="AppendResp",
+             marshal="AppendResp.marshal",
+             unmarshal="AppendResp.unmarshal",
+             sections=(Section("term", "i32"),
+                       Section("acked", "i32"),
+                       Section("hint", "i32"),
+                       Section("ok", "u8"),
+                       Section("active", "u8"))),
+        Kind("KIND_VOTE", 2, cls="VoteReq",
+             marshal="VoteReq.marshal",
+             unmarshal="VoteReq.unmarshal",
+             sections=(Section("term", "i32"),
+                       Section("last", "i32"),
+                       Section("lterm", "i32"),
+                       Section("active", "u8"))),
+        Kind("KIND_VOTE_RESP", 3, cls="VoteResp",
+             marshal="VoteResp.marshal",
+             unmarshal="VoteResp.unmarshal",
+             sections=(Section("term", "i32"),
+                       Section("granted", "u8"),
+                       Section("active", "u8"))),
+        # declared for the client-propose lineage; never shipped on
+        # the peer wire — unmarshal_any rejects it typed
+        Kind("KIND_PROPOSE", 4),
+    ),
+    flags=(
+        Flag("FLAG_TRACE", 0x0001, section="trace",
+             scope="AppendBatch.unmarshal"),
+        Flag("FLAG_PACKED", 0x0002, section="packed",
+             scope="AppendBatch.unmarshal"),
+    ),
+    structs={"_HDR": "<4sBBHIIII", "_TRACE_ENT": "<iiIBxxx"},
+    bounds=(
+        Bound("dgb2.groups", 1 << 16, scope="parse_header",
+              doc="co-hosted group lanes per frame"),
+        Bound("dgb2.ents_per_lane", 1 << 16, scope="parse_header",
+              doc="E axis of the [G, E] entry-term table"),
+        Bound("dgb2.total_entries", 1 << 24,
+              scope="AppendBatch.unmarshal",
+              doc="sum(n_ents) payload blobs in one frame"),
+        Bound("dgb2.payload_len", 1 << 26,
+              scope="AppendBatch.unmarshal",
+              doc="one entry payload blob"),
+        Bound("dgb2.trace_count", 65536, scope="_read_trace",
+              doc="head-sampled trace rows, never the batch"),
+    ),
+    parse_scopes=("parse_header", "_read_trace", "_read_packed",
+                  "AppendBatch.unmarshal", "AppendResp.unmarshal",
+                  "VoteReq.unmarshal", "VoteResp.unmarshal",
+                  "unmarshal_any"),
+)
+
+DCB1 = FrameSchema(
+    name="DCB1",
+    module="etcd_tpu/wire/clientmsg.py",
+    magic=b"DCB1",
+    error="FrameError",
+    header="<4sBBHI",
+    header_fields=("magic", "kind", "flags", "reserved", "count"),
+    count_fields=("count",),
+    kinds=(
+        Kind("KIND_GET_REQ", 0, unmarshal="unpack_get_request",
+             sections=(Section("plens", "i32"),
+                       Section("paths", "blob"))),
+        Kind("KIND_GET_RESP", 1, unmarshal="unpack_get_response",
+             sections=(Section("vlens", "i32"),
+                       Section("errs", "struct:_ERR"),
+                       Section("vals", "blob"),
+                       Section("msgs", "blob"))),
+        Kind("KIND_PROPOSE_RESP", 2,
+             unmarshal="unpack_propose_response",
+             sections=(Section("errs", "struct:_ERR"),
+                       Section("msgs", "blob"))),
+    ),
+    structs={"_HDR": "<4sBBHI", "_ERR": "<iii"},
+    bounds=(
+        Bound("dcb1.count", 1 << 20, scope="_parse_header",
+              doc="ops per client batch"),
+        Bound("dcb1.path_len", 1 << 16, scope="unpack_get_request",
+              doc="one utf-8 key path"),
+        Bound("dcb1.val_len", 1 << 26, scope="unpack_get_response",
+              doc="one value blob"),
+        Bound("dcb1.msg_len", 1 << 16, scope="_unpack_errs",
+              doc="one error message"),
+    ),
+    parse_scopes=("_parse_header", "unpack_get_request",
+                  "_unpack_errs", "_slice_msgs",
+                  "unpack_get_response", "unpack_propose_response"),
+)
+
+DRH1 = FrameSchema(
+    name="DRH1",
+    module="etcd_tpu/wire/rolemsg.py",
+    magic=b"DRH1",
+    error="FrameError",
+    header="<4sBBHI",
+    header_fields=("magic", "kind", "flags", "reserved", "count"),
+    count_fields=("count",),
+    kinds=(
+        Kind("KIND_FWD_REQ", 0, unmarshal="unpack_fwd_request",
+             sections=(Section("opflags", "u8"),
+                       Section("rlens", "i32"),
+                       Section("blobs", "blob"))),
+        Kind("KIND_FWD_ACKS", 1, unmarshal="unpack_fwd_acks",
+             sections=(Section("errs", "struct:_ERR"),
+                       Section("msgs", "blob"))),
+        Kind("KIND_FWD_VALS", 2, unmarshal="unpack_fwd_vals",
+             sections=(Section("vlens", "i32"),
+                       Section("errs", "struct:_ERR"),
+                       Section("vals", "blob"),
+                       Section("msgs", "blob"))),
+        Kind("KIND_FWD_RESP", 3, unmarshal="unpack_fwd_response",
+             sections=(Section("rows", "struct:_EVT"),
+                       Section("blobs", "blob"))),
+        Kind("KIND_COMMIT", 4, unmarshal="unpack_commit",
+             sections=(Section("seq", "u64"),
+                       Section("groups", "i32"),
+                       Section("gindex", "i64"),
+                       Section("rlens", "i32"),
+                       Section("payloads", "blob"))),
+    ),
+    flags=(
+        # reply-shape bits ride the header for the shard-side
+        # dispatcher (server/roles.py); the parser hands them through
+        Flag("REPLY_ACKS", 0x01),
+        Flag("REPLY_VALS", 0x02),
+    ),
+    structs={"_HDR": "<4sBBHI", "_ERR": "<iii",
+             "_EVT": "<iBBHqqqqqdiiii"},
+    bounds=(
+        Bound("drh1.count", 1 << 20, scope="_parse_header",
+              doc="ops / rows per handoff frame"),
+        Bound("drh1.blob_len", 1 << 26, scope="_slice_blobs",
+              doc="one request/payload blob"),
+        Bound("drh1.val_len", 1 << 26, scope="unpack_fwd_vals",
+              doc="one value blob"),
+        Bound("drh1.msg_len", 1 << 16, scope="_unpack_errs",
+              doc="one error message"),
+    ),
+    parse_scopes=("_parse_header", "unpack_fwd_request",
+                  "_unpack_errs", "_slice_msgs", "_slice_blobs",
+                  "unpack_fwd_acks", "unpack_fwd_vals",
+                  "unpack_fwd_response", "unpack_commit"),
+)
+
+SRG1 = FrameSchema(
+    name="SRG1",
+    module="etcd_tpu/server/shmring.py",
+    magic=0x31475253,  # "SRG1" little-endian
+    error="FrameError",
+    # fixed-offset header, not a packed struct: cursors are single
+    # aligned 8-byte stores and must not move if a field is added
+    header_size=64,
+    offsets={"magic": 0, "generation": 4, "head": 8, "tail": 16,
+             "dropped": 24, "capacity": 32},
+    bounds=(
+        Bound("srg1.capacity", 1 << 30, scope="ShmRing._attach",
+              doc="ring byte span, validated against segment size"),
+        Bound("srg1.record_len", 1 << 26,
+              doc="one length-prefixed record"),
+    ),
+    parse_scopes=("ShmRing._attach", "ShmRing._peek",
+                  "ShmRing.pop"),
+)
+
+GPB1 = FrameSchema(
+    name="GPB1",
+    module="etcd_tpu/wire/proto.py",
+    magic=b"",
+    error="ProtoError",
+    messages=(
+        ProtoMessage("Entry", (
+            ProtoField(1, "type", 0), ProtoField(2, "term", 0),
+            ProtoField(3, "index", 0), ProtoField(4, "data", 2))),
+        ProtoMessage("Snapshot", (
+            ProtoField(1, "data", 2), ProtoField(2, "nodes", 0),
+            ProtoField(3, "index", 0), ProtoField(4, "term", 0),
+            ProtoField(5, "removed_nodes", 0))),
+        ProtoMessage("Message", (
+            ProtoField(1, "type", 0), ProtoField(2, "to", 0),
+            ProtoField(3, "from_", 0), ProtoField(4, "term", 0),
+            ProtoField(5, "log_term", 0), ProtoField(6, "index", 0),
+            ProtoField(7, "entries", 2), ProtoField(8, "commit", 0),
+            ProtoField(9, "snapshot", 2),
+            ProtoField(10, "reject", 0))),
+        ProtoMessage("HardState", (
+            ProtoField(1, "term", 0), ProtoField(2, "vote", 0),
+            ProtoField(3, "commit", 0))),
+        ProtoMessage("ConfChange", (
+            ProtoField(1, "id", 0), ProtoField(2, "type", 0),
+            ProtoField(3, "node_id", 0),
+            ProtoField(4, "context", 2))),
+        ProtoMessage("Record", (
+            ProtoField(1, "type", 0), ProtoField(2, "crc", 0),
+            ProtoField(3, "data", 2, optional=True))),
+        ProtoMessage("GroupEntry", (
+            ProtoField(1, "kind", 0), ProtoField(2, "group", 0),
+            ProtoField(3, "gindex", 0), ProtoField(4, "gterm", 0),
+            ProtoField(5, "payload", 2, optional=True))),
+        ProtoMessage("SnapPb", (
+            ProtoField(1, "crc", 0),
+            ProtoField(2, "data", 2, optional=True))),
+    ),
+    bounds=(
+        Bound("gpb1.len", 1 << 30, scope="_bytes_field",
+              doc="one length-delimited field"),
+    ),
+    parse_scopes=("uvarint", "_tag", "_skip_field", "_bytes_field",
+                  "Entry.unmarshal", "Snapshot.unmarshal",
+                  "Message.unmarshal", "HardState.unmarshal",
+                  "ConfChange.unmarshal", "Record.unmarshal",
+                  "GroupEntry.unmarshal", "SnapPb.unmarshal"),
+)
+
+FORMATS: tuple[FrameSchema, ...] = (DGB2, DCB1, DRH1, SRG1, GPB1)
+
+#: schema by owning module relpath — the wire checkers key on this
+MODULE_SCHEMAS: dict[str, FrameSchema] = {
+    f.module: f for f in FORMATS}
+
+#: closed catalog of every wire length/count plausibility cap.
+#: ``check_bound`` call sites must name a key from this dict with a
+#: string literal — the wire-bounds checker rejects dynamic names and
+#: unknown keys (the fault-vocabulary pattern).
+BOUNDS: dict[str, int] = {
+    b.name: b.cap for f in FORMATS for b in f.bounds}
+
+#: function/method names the wire checkers treat as parse scopes in
+#: ANY wire-target file (fixture trees included) — the schema
+#: parse_scopes pin the real modules' entry points exactly
+PARSE_NAME_RE = re.compile(
+    r"^(unmarshal|unpack_|parse_|_parse_|_read_|_unpack_|_slice_"
+    r"|uvarint$|_tag$|_skip_field$|_bytes_field$|_peek$|pop$)")
+
+
+def check_bound(name: str, value: int,
+                err: type[Exception] = FrameError) -> None:
+    """Reject a wire-derived length/count outside its declared
+    plausibility cap — typed, before it can size an allocation or a
+    loop.  ``name`` must be a string literal from ``BOUNDS`` (lint
+    enforces the closed vocabulary)."""
+    if value < 0 or value > BOUNDS[name]:
+        raise err(f"implausible {name} {value} "
+                  f"(cap {BOUNDS[name]})")

@@ -1,8 +1,10 @@
 """``python -m etcd_tpu_torch.cli``, by subprocess: the co-hosted server
 on the CPU (``ETCD_TORCH_DEVICE=cpu``) serves a PUT and a GET over HTTP
-and restarts from its data dir; without CUDA and without that variable
-it exits non-zero naming CUDA; the modes not ported yet exit 2 (the
-front door and the mesh by subprocess, the others through ``main``)."""
+and restarts from its data dir; three ``--dist-slot`` processes serve a
+3-host cluster; without CUDA and without that variable it exits non-zero
+naming CUDA; the modes not ported yet exit 2 (the front door and the
+mesh by subprocess, the others, ``--dist-roles`` and
+``--dist-mesh-devices`` among them, through ``main``)."""
 
 import json
 import os
@@ -10,6 +12,7 @@ import socket
 import subprocess
 import sys
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -123,9 +126,13 @@ def test_cli_front_door_and_mesh_exit_2(tmp_path, args):
 
 
 @pytest.mark.parametrize("args", [
-    ["--cohosted-groups", "4", "--dist-slot", "0"],
+    ["--cohosted-groups", "4", "--dist-slot", "0", "--dist-roles", "2",
+     "--dist-peers", "http://127.0.0.1:1,http://127.0.0.1:2"],
     ["--proxy", "on"],
     [],
+    ["--cohosted-groups", "4", "--dist-slot", "0",
+     "--dist-mesh-devices", "2",
+     "--dist-peers", "http://127.0.0.1:1,http://127.0.0.1:2"],
 ])
 def test_cli_other_modes_not_ported_exit_2(tmp_path, args, capsys,
                                            monkeypatch):
@@ -133,3 +140,56 @@ def test_cli_other_modes_not_ported_exit_2(tmp_path, args, capsys,
     assert cli.main([*args, "--data-dir", str(tmp_path / "d")]) == 2
     assert "not ported yet" in capsys.readouterr().err
     assert not (tmp_path / "d").exists()
+
+
+def test_cli_dist_slot_serves_a_three_host_cluster(tmp_path):
+    """Three ``--dist-slot`` processes: a PUT through slot 0's client
+    URL (slot 0 bootstraps leadership of a fresh cluster) reads back
+    through every host's."""
+    peers = [f"http://127.0.0.1:{_free_port()}" for _ in range(3)]
+    clients = [_free_port() for _ in range(3)]
+    procs = []
+    try:
+        for s in range(3):
+            url = f"http://127.0.0.1:{clients[s]}"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "etcd_tpu_torch.cli",
+                 "--dist-slot", str(s), "--dist-peers", ",".join(peers),
+                 "--cohosted-groups", "4",
+                 "--data-dir", str(tmp_path / f"d{s}"),
+                 "--listen-client-urls", url,
+                 "--advertise-client-urls", url],
+                env=_env(ETCD_TORCH_DEVICE="cpu"), cwd=REPO,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        for s in range(3):
+            _wait_port(clients[s], procs[s])
+        base = f"http://127.0.0.1:{clients[0]}"
+        deadline = time.time() + 60
+        while True:  # slot 0's bootstrap campaign may still be running
+            req = urllib.request.Request(f"{base}/v2/keys/app/k",
+                                         data=b"value=dist", method="PUT")
+            req.add_header("Content-Type",
+                           "application/x-www-form-urlencoded")
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    assert json.loads(r.read())["action"] == "set"
+                break
+            except urllib.error.HTTPError:
+                assert time.time() < deadline, "no leader took the PUT"
+                time.sleep(0.5)
+        for s in range(3):
+            url = (f"http://127.0.0.1:{clients[s]}/v2/keys/app/k"
+                   "?serializable=true")
+            while True:
+                try:
+                    with urllib.request.urlopen(url, timeout=30) as r:
+                        assert json.loads(r.read())["node"]["value"] \
+                            == "dist"
+                    break
+                except urllib.error.HTTPError:
+                    assert time.time() < deadline, f"slot {s} never read"
+                    time.sleep(0.2)
+    finally:
+        for p in procs:
+            _stop(p)
