@@ -9,7 +9,7 @@ with g++, all at once, measures the rate of the 1-bit and int8
 (``etcd_tpu_torch.scripts.mma_rate``), and holds each kernel bit for bit
 against its plain torch version, the raw-CRC kernel also at rows wider
 than its 4096 bytes (L = 4097, 8192, 65536: folded from 4096-byte
-slabs).  Then it drives four paths at full size:
+slabs).  Then it drives seven paths at full size:
 
 1. the main path, ``etcd_tpu_torch.parallel.data_plane_step``: 1,048,576
    WAL records of 256-380 bytes in 384-byte rows (BASELINE config 1,
@@ -63,7 +63,22 @@ slabs).  Then it drives four paths at full size:
    with ``--storage-backend tpu``, which must replay its WAL through the
    raw-CRC kernel on the stream lane, catch up and read every key back.
    The kernel is then held against its plain version at the largest
-   batch the restart launched.
+   batch the restart launched;
+7. the sharded data plane, BASELINE config 5 (``etcd_tpu_torch.parallel.
+   make_sharded_step`` and ``etcd_tpu_torch.scripts.config5_bench``) on
+   virtual shards of the one card, so the numbers are the g x s
+   decomposition on one H100, not eight cards: the main path's records
+   and groups through the sharded step on a (g, s) = (4, 2) mesh of 8
+   virtual shards, bit-equal to ``data_plane_step`` in every output, a
+   byte flipped in the left byte-block of a record in the third
+   group-block flagging that record only, and ``make_replay_commit_step``
+   equal to ``replay_commit_local``; ``config5_bench.main`` at 100,000
+   groups on the same mesh (its JSON line), its sharded ``MultiRaft``
+   held field for field against an unsharded one driven alike; the
+   co-hosted server at 10,000 groups x 5 on 2 virtual shards serving
+   400 PUTs, restarted with ``storage_backend="tpu"`` through the kernel
+   and every key read back; and ``DistMember`` at 10,000 groups on 2
+   virtual shards held against unsharded members call for call.
 
 Each path is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Prints, on its last lines: one JSON
@@ -104,10 +119,13 @@ from etcd_tpu_torch.obs.metrics import registry  # noqa: E402
 from etcd_tpu_torch.ops import crc_cuda, crc_kernel, planes_cuda  # noqa: E402
 from etcd_tpu_torch.ops.crc_device import (  # noqa: E402
     chain_verify_device, raw_crc_batch, u32_tensor)
-from etcd_tpu_torch.parallel import data_plane_step  # noqa: E402
+from etcd_tpu_torch.parallel import (  # noqa: E402
+    data_plane_step, make_replay_commit_step, make_sharded_step,
+    place_step_inputs, replay_commit_local, shard_grid, shard_leading)
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
-    cohosted_bench, crc_variants_bench, dist_bench, kernel_sweep, mma_rate)
+    cohosted_bench, config5_bench, crc_variants_bench, dist_bench,
+    kernel_sweep, mma_rate)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
 from etcd_tpu_torch.wal import WAL  # noqa: E402
@@ -139,6 +157,10 @@ BACKENDS = ("host", "tpu", "auto")
 # bench.py's dist_cluster client (8 connections x windows of 512)
 DIST_G, DIST_CAP, DIST_TOTAL, DIST_EXTRA = 10_000, 1024, 16_000, 2_000
 DIST_CONNS, DIST_WINDOW, DIST_DEPTH, DIST_BATCH_ENTS = 8, 512, 8, 128
+# the sharded data plane (config 5): 8 virtual shards of the card as a
+# (4, 2) mesh for the step and the engine; 2 for the server and the
+# dist engine at 10,000 groups
+MESH_SHARDS, C5_ITERS, C5_SERVE_SHARDS, C5_PUTS = 8, 10, 2, 400
 
 # The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
@@ -806,6 +828,125 @@ def dist(rng, card: str) -> dict:
     return {"run": r, "kernel": k}
 
 
+def sharded(buf_h, lens_h, stored_h, rng, card: str) -> dict:
+    """Phase 14: the sharded data plane on virtual shards of the card
+    (module docstring, path 7).  Returns the kernels-line numbers."""
+    dev = torch.device("cuda")
+    buf = torch.from_numpy(buf_h).to(dev)
+    lens = torch.from_numpy(lens_h).to(dev)
+    stored = u32_tensor(stored_h, dev)
+    state, *raft = group_args(G, M, CAP, dev)
+    args = (buf, lens, stored, SEED_VAL, state, *raft)
+    ref = data_plane_step(*args)
+    mesh = config5_bench.virtual_mesh(MESH_SHARDS)
+    ng, ns = mesh.shape["g"], mesh.shape["s"]
+    check((ng, ns) == (4, 2), f"mesh {mesh.shape}, not (4, 2)")
+    placed = place_step_inputs(mesh, args)
+    step = make_sharded_step(mesh)
+    torch.cuda.synchronize()
+
+    # (a) the sharded step at config 5's width
+    reset_launches()
+    links, st, err, ncomm, commit_all = step(*placed)
+    torch.cuda.synchronize()
+    launches = crc_cuda.raw_crc_cuda.launches
+    check(launches == ng * ns, f"the sharded step launched raw_crc "
+          f"{launches} times, not {ng * ns}")
+    check(torch.equal(torch.cat(links), ref[0]) and bool(ref[0].all()),
+          "sharded links != the unsharded step's")
+    check(all(torch.equal(torch.cat(a), b) for a, b in zip(st, ref[1])),
+          "sharded state != the unsharded step's")
+    check(torch.equal(torch.cat(err), ref[2])
+          and torch.equal(torch.cat(ncomm), ref[3]),
+          "sharded err/ncomm != the unsharded step's")
+    check(torch.equal(commit_all, ref[1].commit), "commit_all != commit")
+    per_g, half = N // ng, WIDTH // ns
+    long_rows = np.nonzero(lens_h[2 * per_g:3 * per_g] > half)[0]
+    check(long_rows.size > 0, "no record longer than one byte-block")
+    r = int(long_rows[long_rows.size // 2])
+    col = WIDTH - int(lens_h[2 * per_g + r])  # the record's first byte
+    block = placed[0][2][0]
+    block[r, col] ^= 0x80
+    fails = torch.cat([~x for x in step(*placed)[0]]).nonzero().flatten()
+    block[r, col] ^= 0x80
+    check(fails.tolist() == [2 * per_g + r], f"byte flip in record "
+          f"{2 * per_g + r} (column {col}): links {fails.tolist()} failed")
+    s2 = ref[1]
+    raft_in = (s2.match, s2.nmembers, s2.commit, s2.term, s2.log_term,
+               s2.offset)
+    want = replay_commit_local(buf, lens, stored, SEED_VAL, *raft_in)
+    got = make_replay_commit_step(mesh)(
+        shard_grid(mesh, buf), *(shard_leading(mesh, x) for x in (
+            lens, stored)), SEED_VAL,
+        *(shard_leading(mesh, x) for x in raft_in))
+    check(torch.equal(torch.cat(got[0]), want[0])
+          and torch.equal(got[1], want[1]),
+          "make_replay_commit_step != replay_commit_local")
+    sharded_ms = time_ms(lambda: step(*placed), reps=C5_ITERS)
+    unsharded_ms = time_ms(lambda: data_plane_step(*args), reps=C5_ITERS)
+    k = kernel_at(placed[0][0][0], reps=20)
+    check(k["max_abs_err"] == 0, f"raw_crc != plain at {k['shape']}")
+    print(f"sharded step {N} x {WIDTH} B, {G} x {M} on a {ng}x{ns} mesh of "
+          f"{MESH_SHARDS} virtual shards on one card: {sharded_ms} ms "
+          f"(unsharded {unsharded_ms} ms), {launches} raw_crc launches a "
+          f"step; bit-equal to the unsharded step, commit_all == commit, "
+          f"a flip in record {2 * per_g + r} flags it alone, replay-commit "
+          f"step equal; raw_crc per block {k['shape']}: {k['ms']} ms, bound "
+          f"{k['bound_ms']} ms, plain {k['plain_ms']} ms [{card}]",
+          flush=True)
+    del buf, lens, stored, state, raft, args, ref, placed, links, st, got
+    torch.cuda.empty_cache()
+
+    # (b) config5_bench at 100,000 groups on the same mesh, and the
+    # serving form unsharded, driven alike
+    c5 = config5_bench.main(groups=G, iters=C5_ITERS, n_devices=MESH_SHARDS)
+    sv = c5.pop("serving")
+    print(json.dumps(c5), flush=True)
+    one = config5_bench.serving(c5["groups"], None, trains=max(
+        2, C5_ITERS // 2), device=dev)
+    bad = cohosted_bench.same_states(sv, one)
+    check(not bad, f"sharded MultiRaft != unsharded in {bad[:8]}")
+    check(sv["reads_per_round"] == one["reads_per_round"],
+          f"host reads a round: sharded {sv['reads_per_round']}, "
+          f"unsharded {one['reads_per_round']}")
+    print(f"config5 serving {c5['groups']} x 5 cap 32: sharded over "
+          f"{sv['blocks']} g-blocks {sv['round_ms']} ms/round, "
+          f"{sv['profile']['launches_per_round']} kernel launches and "
+          f"{sv['reads_per_round']} host reads a round; unsharded "
+          f"{one['round_ms']} ms/round, "
+          f"{one['profile']['launches_per_round']} launches and "
+          f"{one['reads_per_round']} reads a round; every field equal "
+          f"({MESH_SHARDS} virtual shards on one card) [{card}]", flush=True)
+
+    # (c) the sharded co-hosted server, restarted through the kernel
+    small = config5_bench.virtual_mesh(C5_SERVE_SHARDS)
+    srv = config5_bench.served(SERVE_G, small, puts=C5_PUTS,
+                               threads=SERVE_THREADS)
+    check(srv["restart_launches"] > 0, "the sharded server's tpu restart "
+          "did not launch the raw-CRC kernel")
+    print(f"sharded server {SERVE_G} x {M} on {C5_SERVE_SHARDS} virtual "
+          f"shards: {C5_PUTS} PUTs from {SERVE_THREADS} threads in "
+          f"{srv['load_s']} s = {srv['acked_writes_per_s']} acked writes/s, "
+          f"p50 {srv['p50_ms']} ms; restart (tpu) {srv['restart_s']} s, "
+          f"{srv['restart_launches']} raw_crc launches, {srv['blocks']} "
+          f"g-blocks, {srv['read_back']} keys read back [{card}]",
+          flush=True)
+
+    # (d) the sharded dist engine against unsharded members
+    de = config5_bench.dist_engine(SERVE_G, small)
+    check(de["reads"]["sharded"] == de["reads"]["unsharded"],
+          f"dist host reads differ: {de['reads']}")
+    print(f"sharded DistMember {SERVE_G} groups x {de['m']} slots on "
+          f"{de['blocks']} virtual shards: {de['calls']} calls, every field, "
+          f"payload and frame equal to unsharded members; host reads "
+          f"{de['reads']} [{card}]", flush=True)
+    return {"launches": launches, "kernel": k, "step_ms": sharded_ms,
+            "unsharded_step_ms": unsharded_ms, "config5": c5,
+            "serving_unsharded_round_ms": one["round_ms"],
+            "serving_unsharded_launches_per_round":
+                one["profile"]["launches_per_round"]}
+
+
 def plain_step(buf, lens, stored, seed, state, *raft):
     """data_plane_step with the plain CRC in place of the kernel."""
     raw = crc_cuda.raw_crc_plain(buf)
@@ -1003,6 +1144,8 @@ def main() -> int:
     served = cohosted(rng, card)
     # 13. the distributed tier
     dist_run = dist(rng, card)
+    # 14. the sharded data plane (config 5)
+    mesh_run = sharded(buf_h, lens_h, stored_h, rng, card)
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -1108,6 +1251,28 @@ def main() -> int:
         "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"],
         "lane": rs["lane"], "restart_s": rs["seconds"],
         "wal_bytes": rs["wal_bytes"]})
+    # raw_crc on the sharded step: one launch per (g, s) block, timed
+    # at a block's shape
+    k = mesh_run["kernel"]
+    kernels.append({
+        "name": "raw_crc/sharded_step", "route": "cuda",
+        "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+        "replaces": "etcd_tpu/ops/crc_pallas.py:40",
+        "launches": mesh_run["launches"],
+        "max_abs_err": k["max_abs_err"], "bit_exact": k["max_abs_err"] == 0,
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
+        "library_ms": None, "design": RAW_DESIGN,
+        "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"],
+        "mesh": f"4x2, {MESH_SHARDS} virtual shards on one card",
+        "step_ms": mesh_run["step_ms"],
+        "unsharded_step_ms": mesh_run["unsharded_step_ms"],
+        "serving_sharded_round_ms":
+            mesh_run["config5"]["serving_sharded_round_ms"],
+        "serving_unsharded_round_ms": mesh_run["serving_unsharded_round_ms"],
+        "serving_launches_per_round": {
+            "sharded": mesh_run["config5"]["serving_launches_per_round"],
+            "unsharded": mesh_run["serving_unsharded_launches_per_round"]}})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,7 +12,9 @@ ported so far:
     raft/       the [G]-batched Raft engine (``batched.py``), the
                 co-hosted G x M runtime on it (``multiraft.py``) and one
                 host's member slot of G groups (``distmember.py``)
-    parallel/   the fused single-card data-plane step
+    parallel/   the fused single-card data-plane step, and its
+                mesh-sharded form over a (g, s) grid of devices (which
+                may be virtual shards of one card)
     wal/        the WAL (``wal.py``), its replay lanes on the card
                 (``replay_device.py``) and their router
                 (``backend_policy.py``)
@@ -25,7 +27,8 @@ ported so far:
                 the seams they share (``server.py``)
     api/        the HTTP client API
     cli.py      ``python -m etcd_tpu_torch.cli --cohosted-groups G`` or
-                ``--dist-slot N --dist-peers ...``
+                ``--dist-slot N --dist-peers ...``, either with
+                ``--cohosted-mesh-devices`` / ``--dist-mesh-devices``
     wire/       the protobuf records, requests and the dist tier's
                 frames (copies)
     utils/      errors, fsync helpers, failpoints, backoff, the wait
@@ -35,9 +38,10 @@ ported so far:
     native.py   ctypes binding of ``native/walscan.cc`` (built with g++
                 at first use)
     scripts/    the raw-CRC variant race, the kernel sweep, the host
-                WAL builder, the co-hosted and dist phases of
-                ``chip_smoke.py``, one dist host per process
-    entry.py    example inputs and the entry point of that step
+                WAL builder, the co-hosted, dist and config-5 phases
+                of ``chip_smoke.py``, one dist host per process
+    entry.py    example inputs, the entry point of that step and the
+                sharded dry run
     csrc/       CUDA C++ sources, built with nvcc at first use
 
 The package imports neither ``jax`` nor ``etcd_tpu``.  Entry points run

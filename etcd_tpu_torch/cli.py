@@ -13,10 +13,12 @@ of G groups whose other members run on the hosts named by
 The device is CUDA; ``ETCD_TORCH_DEVICE`` names another (``cpu`` runs
 the plain torch versions on the host, for tests).  Without CUDA and
 without that variable the CLI exits 1 with the error.
+``--cohosted-mesh-devices N`` / ``--dist-mesh-devices N`` split the group
+batch over the first N local devices (the CUDA devices; on the CPU, its
+8 virtual devices, ``parallel.mesh.VIRTUAL_CPU_DEVICES``).
 
 Not ported yet, each exiting 2 with "not ported yet": the classic
 single-group mode (``--cohosted-groups 0`` without ``--dist-slot``),
-``--cohosted-mesh-devices N > 0``, ``--dist-mesh-devices N > 0``,
 ``--dist-roles S > 0``, ``--proxy`` and ``--frontdoor on`` (the front
 door).  The port's ``--frontdoor`` therefore defaults to ``off``,
 where the reference's defaults to ``on``; the threaded server answers.
@@ -117,8 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cohosted-members", type=int, default=3,
                    help="Members per co-hosted group (default 3)")
     p.add_argument("--cohosted-mesh-devices", type=int, default=0,
-                   help="Shard the co-hosted group batch over N local "
-                        "devices (not ported yet; 0 = single device)")
+                   help="Shard the co-hosted group batch over the "
+                        "first N local devices (--cohosted-groups "
+                        "must divide by the mesh's group axis; 0 = "
+                        "single device)")
     p.add_argument("--dist-slot", type=int, default=-1,
                    help="Run the DISTRIBUTED multi-group server as "
                         "member slot N of --dist-peers: each host "
@@ -130,8 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "for --dist-slot mode (this host's own slot "
                         "included)")
     p.add_argument("--dist-mesh-devices", type=int, default=0,
-                   help="Shard this host's group batch over N local "
-                        "devices (not ported yet; 0 = single device)")
+                   help="Shard this host's group batch over its first "
+                        "N local devices (intra-host tier composed "
+                        "under the cross-host tier; --cohosted-groups "
+                        "must divide by the mesh's group axis; 0 = "
+                        "single device)")
     # default 60 ticks (3s at the 0.05s tick): wide enough for every
     # supported host count's stratified bands; start_dist checks it
     # against the actual --dist-peers count (the DistMember clamp
@@ -228,14 +235,9 @@ def main(argv: list[str] | None = None) -> int:
         return _not_ported("--proxy", "A, the proxy")
     if args.dist_slot >= 0 and args.dist_roles:
         return _not_ported("--dist-roles", "A7, the role topology")
-    if args.dist_slot >= 0 and args.dist_mesh_devices:
-        return _not_ported("--dist-mesh-devices", "A2, the sharded step")
     if args.dist_slot < 0 and args.cohosted_groups <= 0:
         return _not_ported("the classic single-group mode",
                            "A, the single-group server")
-    if args.cohosted_mesh_devices:
-        return _not_ported("--cohosted-mesh-devices",
-                           "A2, the sharded step")
     if args.frontdoor == "on":
         return _not_ported("--frontdoor on", "A, the front door")
     try:
@@ -293,6 +295,11 @@ def start_dist(args, explicit: set[str], device) -> int:
     client_tls = TLSInfo(args.cert_file, args.key_file, args.ca_file)
     acurls = urls_from_flags(args, "advertise_client_urls", "addr",
                              explicit, client_tls.empty())
+    try:
+        mesh = _local_mesh(args.dist_mesh_devices, g, device)
+    except ValueError as e:
+        log.error("--dist-mesh-devices: %s", e)
+        return 1
     peer_tls = TLSInfo(args.peer_cert_file, args.peer_key_file,
                        args.peer_ca_file)
     try:
@@ -304,7 +311,7 @@ def start_dist(args, explicit: set[str], device) -> int:
                        snap_count=args.snapshot_count,
                        election=args.dist_election_ticks,
                        storage_backend=args.storage_backend,
-                       client_urls=list(acurls),
+                       client_urls=list(acurls), mesh=mesh,
                        peer_tls=peer_tls if not peer_tls.empty()
                        else None,
                        pipeline_depth=args.dist_pipeline_depth,
@@ -356,11 +363,17 @@ def start_multigroup(args, explicit: set[str], device) -> int:
     client_tls = TLSInfo(args.cert_file, args.key_file, args.ca_file)
     acurls = urls_from_flags(args, "advertise_client_urls", "addr",
                              explicit, client_tls.empty())
+    try:
+        mesh = _local_mesh(args.cohosted_mesh_devices,
+                           args.cohosted_groups, device)
+    except ValueError as e:
+        log.error("--cohosted-mesh-devices: %s", e)
+        return 1
     s = MultiGroupServer(
         data_dir, g=args.cohosted_groups, m=args.cohosted_members,
         name=args.name, snap_count=args.snapshot_count,
         storage_backend=args.storage_backend,
-        client_urls=list(acurls), device=device)
+        client_urls=list(acurls), mesh=mesh, device=device)
     s.start()
     cors = parse_cors(args.cors) if args.cors else None
     lcurls = urls_from_flags(args, "listen_client_urls", "bind_addr",
@@ -375,6 +388,23 @@ def start_multigroup(args, explicit: set[str], device) -> int:
 
     threading.Event().wait()  # pragma: no cover
     return 0
+
+
+def _local_mesh(n: int, groups: int, device):
+    """Build a local device mesh over the first ``n`` devices of
+    ``device``'s kind, or None when ``n`` is 0.  Fails fast (ValueError,
+    the reference's messages) on every flag misconfiguration: negative
+    or oversized counts (``group_mesh`` raises) and a group count that
+    does not split over the mesh, so the servers' own pre-disk guards
+    never fire from the CLI path."""
+    if not n:
+        return None
+    from .parallel.mesh import check_group_divisible, group_mesh, \
+        local_devices
+
+    mesh = group_mesh(n, devices=local_devices(device))
+    check_group_divisible(mesh, groups)
+    return mesh
 
 
 def _split_hostport(u: str) -> tuple[str, int]:

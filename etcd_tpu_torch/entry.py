@@ -1,11 +1,15 @@
-"""Entry point of the port's flagship step.
+"""Entry points of the port's flagship step.
 
 ``entry()`` returns ``(data_plane_step, args)`` with the example inputs
 on CUDA: one fused round of WAL-chunk CRC chain verification and the
 batched Raft leader pipeline over G co-hosted groups, as
 ``__graft_entry__.entry()`` does for the JAX package.
+``dryrun_multichip(n)`` runs one full mesh-sharded step over ``n``
+virtual shards of one device, as ``__graft_entry__.dryrun_multichip``
+does over virtual CPU devices.
 
-Run ``python -m etcd_tpu_torch.entry`` to take one step on the card.
+Run ``python -m etcd_tpu_torch.entry [N]`` to take one step and one
+sharded step over N virtual shards (default 8) on the card.
 """
 
 from __future__ import annotations
@@ -16,7 +20,12 @@ import torch
 from . import default_device
 from .crc import crc32c
 from .ops.crc_device import u32_tensor
-from .parallel import data_plane_step
+from .parallel import (
+    data_plane_step,
+    group_mesh,
+    make_sharded_step,
+    place_step_inputs,
+)
 from .raft.batched import LEADER, init_groups
 
 
@@ -74,10 +83,37 @@ def entry():
     return data_plane_step, example_args(device="cuda")
 
 
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """One full sharded step (``parallel.make_sharded_step``: raw CRCs
+    of every (g, s) block XOR-combined over ``s``, the chain seam over
+    ``g``, the commit frontier gathered) over a mesh of ``n_devices``
+    virtual shards of ``default_device(device)`` (CUDA unless the caller
+    asks for another), at the reference's tiny shapes, with its four
+    checks.  Like the reference's run on virtual CPU devices, this
+    checks the decomposition, not a multi-device speed."""
+    dev = default_device(device)
+    mesh = group_mesh(n_devices, devices=[dev] * n_devices)
+    ng, ns = mesh.shape["g"], mesh.shape["s"]
+    args = place_step_inputs(mesh, example_args(
+        n=4 * ng, max_len=8 * ns, g=4 * ng, m=3, cap=16, device=dev))
+    links_ok, _state, err, ncomm, commit_all = \
+        make_sharded_step(mesh)(*args)
+    assert all(bool(x.all()) for x in links_ok), "chain verify failed"
+    assert not any(bool(x.any()) for x in err), "error lanes raised"
+    assert commit_all.shape == (4 * ng,)
+    assert all(bool((x == 2).all()) for x in ncomm), \
+        "commit did not advance"
+
+
 if __name__ == "__main__":
+    import sys
+
     fn, args = entry()
     links_ok, state, err, ncomm = fn(*args)
     torch.cuda.synchronize()
     print("entry OK: links_ok all =", bool(links_ok.all()),
           "errors:", int(err.sum()),
           "committed:", ncomm[:4].tolist())
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 8
+    dryrun_multichip(n)
+    print(f"dryrun_multichip OK: {n} virtual shards of one card")

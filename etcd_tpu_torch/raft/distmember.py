@@ -32,6 +32,12 @@ read of device state goes through ``obs.devledger.fetch`` under a
 ``dist.*`` stage, so the reads a round costs are counted.  Timeouts are
 drawn on the host with numpy's ``default_rng``, as in the reference, so
 both engines draw the same timeouts from the same seed.
+
+:meth:`DistMember.shard` splits the groups over a device mesh's ``g``
+axis, as ``MultiRaft.shard`` does: the state is held as g-blocks, every
+step runs once per block with the per-frame inputs split alike, and
+each host read gathers the blocks first; the election draws stay
+whole-G on the host.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 
 from .. import default_device
 from ..obs.devledger import ledger as _ledger
+from ..parallel.mesh import BlockLayout
 from ..wire.distmsg import (
     AppendBatch,
     AppendResp,
@@ -207,9 +214,37 @@ def _become_leader(state: GroupState, won, slot: int):
                           state.next_))
 
 
+def _host(arr, dtype=None) -> np.ndarray:
+    """Integer arrays of no stated dtype land as int32, as JAX's default
+    (32-bit) mode puts them."""
+    a = np.asarray(arr, dtype)
+    if dtype is None and a.dtype.kind in "iu":
+        a = a.astype(np.int32)
+    return a
+
+
+def _set_timeout(state: GroupState, mask, timeout):
+    return state._replace(timeout=torch.where(mask, timeout, state.timeout))
+
+
+def _handle_vote(state: GroupState, active, term, last, lterm, minus1,
+                 sender):
+    """msgVote receipt: adopt higher terms, grant where up to date and
+    free, reset the election timer of granting lanes."""
+    st = _adopt_term(state, term, minus1, active)
+    st, granted = grant_vote(st, last, lterm, term, sender, active=active)
+    return st._replace(elapsed=torch.where(granted, 0, st.elapsed)), granted
+
+
 class DistMember:
     """Member ``slot`` of G co-hosted groups; peers live on other
-    hosts and exchange wire/distmsg.py frames."""
+    hosts and exchange wire/distmsg.py frames.
+
+    The state is held as g-blocks, one until :meth:`shard` splits the
+    groups over a mesh; every step runs once per block, on that block's
+    device, with the per-frame host inputs split alike, and host reads
+    gather the blocks first (the same reads a round at any block
+    count).  :attr:`state` reads as one whole ``GroupState``."""
 
     def __init__(self, g: int, m: int, slot: int, cap: int,
                  election: int = 10, max_batch_ents: int = 8,
@@ -222,6 +257,8 @@ class DistMember:
         self.device = default_device(device)
         self.g, self.m, self.slot, self.cap = g, m, slot, cap
         self.e = max_batch_ents
+        self.mesh = None
+        self._lay = BlockLayout(g, [self.device])
         # the stratified election bands (_draw_timeouts) carve m
         # disjoint width->=1 bands out of [election, 2*election);
         # with election < m that is impossible: w clamps to 1 and
@@ -230,7 +267,8 @@ class DistMember:
         # config.
         self.election = max(election, m)
         # kept: the timeout is re-drawn per campaign (see
-        # begin_campaign), not fixed at init
+        # begin_campaign), not fixed at init; draws stay whole-G on
+        # the host at any block count
         self._rng = np.random.default_rng(
             slot if seed is None else seed)
         st = init_groups(g, m, cap, election=self.election,
@@ -251,42 +289,79 @@ class DistMember:
         self.packed_wire = \
             os.environ.get("ETCD_DIST_PACKED", "1") != "0"
 
-    # -- intra-host scale-out ---------------------------------------------
+    # -- the g-blocks and intra-host scale-out ------------------------------
+
+    @property
+    def state(self) -> GroupState:
+        """The whole state (sharded: gathered onto the engine's
+        device).  Assigning one replaces every block."""
+        return self._lay.gather_state(self._blocks)
+
+    @state.setter
+    def state(self, st: GroupState) -> None:
+        self._blocks = self._lay.split_state(st)
 
     def shard(self, mesh) -> None:
-        """Sharding the [G]-leading state over a device mesh is not
-        ported yet (it comes with the sharded step)."""
-        raise NotImplementedError(
-            "DistMember.shard: the mesh-sharded engine is not ported "
-            "yet")
+        """Split every [G]-leading state tensor over the mesh's ``g``
+        axis (the intra-host tier composed under the cross-host one):
+        block ``i`` moves to ``mesh.devices[i][0]`` as a copy, and every
+        later step runs once per block with the per-frame [G]/[G, E]
+        host inputs split alike; the frame exchange above is unchanged.
+        Callers re-invoke after wholesale state replacement (restart
+        seeding)."""
+        lay = mesh.layout(self.g)
+        st = self.state
+        self._lay = lay
+        self.mesh = mesh
+        self.device = lay.home
+        self.state = st
+
+    def _step(self, fn, *inputs, **static):
+        """``fn(block_state, *block_inputs, **static)`` once per g-block.
+        ``fn`` returns the new state, or ``(state, *outputs)``; the
+        blocks' states are kept and each output comes back whole (one
+        output alone, several as a list)."""
+        outs = [fn(st, *x, **static)
+                for st, *x in zip(self._blocks, *inputs)]
+        if isinstance(outs[0], GroupState):
+            self._blocks = outs
+            return None
+        self._blocks = [o[0] for o in outs]
+        rest = [self._lay.gather(list(v))
+                for v in zip(*(o[1:] for o in outs))]
+        return rest[0] if len(rest) == 1 else rest
+
+    def _field(self, name: str) -> torch.Tensor:
+        """One state field, whole."""
+        return self._lay.gather([getattr(st, name) for st in self._blocks])
 
     def _put(self, arr, dtype=None) -> torch.Tensor:
-        """Host array -> the engine's device.  Integer arrays of no
-        stated dtype land as int32, as JAX's default (32-bit) mode puts
-        them."""
-        a = np.asarray(arr, dtype)
-        if dtype is None and a.dtype.kind in "iu":
-            a = a.astype(np.int32)
-        return torch.tensor(np.ascontiguousarray(a), device=self.device)
+        """Host array -> one whole tensor on the engine's device."""
+        return torch.tensor(np.ascontiguousarray(_host(arr, dtype)),
+                            device=self.device)
 
-    def _full(self, value, dtype=np.int32) -> torch.Tensor:
-        """[G] constant vector on the engine's device."""
-        return self._put(np.full(self.g, value), dtype)
+    def _put_b(self, arr, dtype=None) -> list[torch.Tensor]:
+        """[G]-leading host array -> its g-blocks."""
+        return self._lay.put(_host(arr, dtype))
+
+    def _full_b(self, value, dtype=np.int32) -> list[torch.Tensor]:
+        """[G] constant vector, as g-blocks."""
+        return self._put_b(np.full(self.g, value), dtype)
 
     # -- views ------------------------------------------------------------
 
     def is_leader(self) -> np.ndarray:
-        return _ledger.fetch("dist.view", self.state.role) == LEADER
+        return _ledger.fetch("dist.view", self._field("role")) == LEADER
 
     def leader_hint(self) -> np.ndarray:
         """[G] member slot believed to lead each group (-1 none)."""
-        return _ledger.fetch("dist.view", self.state.lead)
+        return _ledger.fetch("dist.view", self._field("lead"))
 
     def commit_index(self) -> np.ndarray:
-        return _ledger.fetch("dist.view", self.state.commit)
+        return _ledger.fetch("dist.view", self._field("commit"))
 
     def terms(self) -> np.ndarray:
-        return _ledger.fetch("dist.view", self.state.term)
+        return _ledger.fetch("dist.view", self._field("term"))
 
     def commit_terms(self) -> np.ndarray:
         """[G] term of the entry AT each commit index: what frontier
@@ -294,16 +369,16 @@ class DistMember:
         follower seeds its log slot 0 with this value, and the
         leader's append match at prev=frontier compares against the
         ENTRY's term, not the group's current term."""
-        st = self.state
-        return _ledger.fetch("dist.view", term_at(
-            st.log_term, st.offset, st.last, st.commit))
+        return _ledger.fetch("dist.view", self._lay.gather([
+            term_at(st.log_term, st.offset, st.last, st.commit)
+            for st in self._blocks]))
 
     def terms_at(self, idx: np.ndarray) -> np.ndarray:
         """[G] term of the entry at ``idx`` per group (0 outside the
         retained window)."""
-        st = self.state
-        return _ledger.fetch("dist.view", term_at(
-            st.log_term, st.offset, st.last, self._put(idx, np.int32)))
+        return _ledger.fetch("dist.view", self._lay.gather([
+            term_at(st.log_term, st.offset, st.last, ix)
+            for st, ix in zip(self._blocks, self._put_b(idx, np.int32))]))
 
     def committed_payload(self, group: int, index: int):
         return self.payloads[group].get(index)
@@ -322,13 +397,10 @@ class DistMember:
         via :meth:`ack_self` only after the WAL fsync covering these
         entries has landed, so commit can never form a quorum out of
         a non-durable local copy."""
-        st = self.state
-        base = _ledger.fetch("dist.propose", st.last)
+        base = _ledger.fetch("dist.propose", self._field("last"))
         lead = self.is_leader()
-        st, err = leader_append(
-            st, self._put(n_new, np.int32),
-            self._full(self.slot), self_ack=self_ack)
-        self.state = st
+        err = self._step(leader_append, self._put_b(n_new, np.int32),
+                         self._full_b(self.slot), self_ack=self_ack)
         overflow = _ledger.fetch("dist.propose", err)
         self.errors["overflow"] = overflow
         valid = lead & (np.asarray(n_new) > 0) & ~overflow
@@ -353,8 +425,9 @@ class DistMember:
         lane's appends always ride one ordered connection."""
         mask = (np.ones(self.g, bool) if lane_mask is None
                 else np.asarray(lane_mask, bool))
-        p = _ledger.fetch("dist.build_append", _build_append_fused(
-            self.state, self._put(mask), peer=peer, e=self.e))
+        p = _ledger.fetch("dist.build_append", self._lay.gather([
+            _build_append_fused(st, mk, peer=peer, e=self.e)
+            for st, mk in zip(self._blocks, self._put_b(mask))]))
         active = p[:, 0].astype(bool)
         if not active.any():
             return None
@@ -384,9 +457,8 @@ class DistMember:
         advance own match to ``upto`` (monotone max) once the WAL
         fsync covering entries ``<= upto`` has landed, then
         quorum-commit."""
-        self.state = _ack_self_fused(self.state,
-                                     self._full(self.slot),
-                                     self._put(upto, np.int32))
+        self._step(_ack_self_fused, self._full_b(self.slot),
+                   self._put_b(upto, np.int32))
 
     def optimistic_advance(self, peer: int, b: AppendBatch) -> None:
         """Advance ``next_[:, peer]`` past the window just SENT in
@@ -396,15 +468,14 @@ class DistMember:
         sent = (np.asarray(b.prev_idx)
                 + np.asarray(b.n_ents)).astype(np.int32)
         active = np.asarray(b.active) & ~np.asarray(b.need_snap)
-        self.state = progress_optimistic(
-            self.state, self._full(peer),
-            self._put(sent, np.int32), active=self._put(active))
+        self._step(progress_optimistic, self._full_b(peer),
+                   self._put_b(sent, np.int32), self._put_b(active))
 
     def probe_reset(self, peer: int) -> None:
         """Roll ``next_[:, peer]`` back to ``match + 1`` after a
         transport failure dropped in-flight frames (etcd raft
         becomeProbe): resend from the last CONFIRMED point."""
-        self.state = progress_probe(self.state, self._full(peer))
+        self._step(progress_probe, self._full_b(peer))
 
     def step_down(self, mask: np.ndarray) -> None:
         """Abdicate the masked leader lanes (check-quorum): a leader
@@ -415,18 +486,17 @@ class DistMember:
         lease clock) has gone stale for longer than the full
         worst-case election window: stop heartbeating so the
         followers can elect a reachable leader."""
-        self.state = _step_down(
-            self.state, self._put(np.asarray(mask, bool)))
+        self._step(_step_down, self._put_b(np.asarray(mask, bool)))
 
     def handle_append_resp(self, r: AppendResp) -> np.ndarray:
         """Absorb a peer's batched response; returns the [G] commit
         vector after quorum advance."""
-        _ledger.fetch("dist.absorb", self.state.commit)
-        self.state = _absorb_resp(
-            self.state, r.sender, self._put(r.term),
-            self._put(r.ok), self._put(r.acked),
-            self._put(r.hint), self._put(r.active))
-        return _ledger.fetch("dist.absorb", self.state.commit)
+        _ledger.fetch("dist.absorb", self._field("commit"))
+        self._step(lambda st, *x: _absorb_resp(st, r.sender, *x),
+                   self._put_b(r.term), self._put_b(r.ok),
+                   self._put_b(r.acked), self._put_b(r.hint),
+                   self._put_b(r.active))
+        return _ledger.fetch("dist.absorb", self._field("commit"))
 
     # -- follower path ----------------------------------------------------
 
@@ -436,14 +506,13 @@ class DistMember:
         payloads, reply with match/hint arrays: one fused step + ONE
         packed fetch per frame.  The CALLER persists the accepted
         entries BEFORE shipping the response."""
-        st, packed = _handle_append_fused(
-            self.state, self._full(b.sender), self._put(b.term),
-            self._put(b.prev_idx), self._put(b.prev_term),
-            self._put(b.ent_terms), self._put(b.n_ents),
-            self._put(b.commit), self._put(b.active),
-            self._put(b.need_snap),
+        packed = self._step(
+            _handle_append_fused, self._full_b(b.sender),
+            self._put_b(b.term), self._put_b(b.prev_idx),
+            self._put_b(b.prev_term), self._put_b(b.ent_terms),
+            self._put_b(b.n_ents), self._put_b(b.commit),
+            self._put_b(b.active), self._put_b(b.need_snap),
             write_mode=_append_write_mode())
-        self.state = st
         p = _ledger.fetch("dist.handle_append", packed)
         ok_np = p[:, 0].astype(bool)
         cur = p[:, 1].astype(bool)
@@ -494,11 +563,13 @@ class DistMember:
                          ) -> np.ndarray:
         """Collapse lanes to a pulled snapshot's frontier
         (raft.go:535-554 batched); returns installed lanes."""
-        st, installed = restore_snapshot(
-            self.state, self._put(frontier, np.int32),
-            self._put(terms, np.int32),
-            members=None if members is None else self._put(members))
-        self.state = st
+        mem = [None] * len(self._blocks) if members is None \
+            else self._put_b(members)
+        installed = self._step(
+            lambda st, fr, tm, mb: restore_snapshot(st, fr, tm,
+                                                    members=mb),
+            self._put_b(frontier, np.int32), self._put_b(terms, np.int32),
+            mem)
         inst = _ledger.fetch("dist.install", installed)
         for gi in np.nonzero(inst)[0]:
             cut = int(frontier[gi])
@@ -537,16 +608,13 @@ class DistMember:
         fire in lockstep forever: both campaign the same term, each
         votes for itself, neither grants: a split that repeats every
         timeout."""
-        mask_d = self._put(np.asarray(mask, bool))
-        st, mj, lterm = _begin_campaign(
-            self.state, mask_d, slot=self.slot)
+        mask_b = self._put_b(np.asarray(mask, bool))
+        mj, lterm = self._step(_begin_campaign, mask_b, slot=self.slot)
         fresh = self._draw_timeouts()
-        st = st._replace(timeout=torch.where(
-            mask_d, self._put(fresh, np.int32), st.timeout))
-        self.state = st
+        self._step(_set_timeout, mask_b, self._put_b(fresh, np.int32))
         return VoteReq(sender=self.slot,
-                       term=_ledger.fetch("dist.vote", st.term),
-                       last=_ledger.fetch("dist.vote", st.last),
+                       term=_ledger.fetch("dist.vote", self._field("term")),
+                       last=_ledger.fetch("dist.vote", self._field("last")),
                        lterm=_ledger.fetch("dist.vote", lterm),
                        active=_ledger.fetch("dist.vote", mj))
 
@@ -554,19 +622,16 @@ class DistMember:
         """Batched msgVote receipt (raft.go:511-518): adopt higher
         terms, grant where log-up-to-date and not already voted.
         Caller persists the ballot before shipping the response."""
-        st = self.state
-        active = self._put(v.active)
-        term = self._put(v.term)
-        st = _adopt_term(st, term, self._full(-1), active)
-        st, granted = grant_vote(
-            st, self._put(v.last), self._put(v.lterm), term,
-            self._full(v.sender), active=active)
-        st = st._replace(elapsed=torch.where(granted, 0, st.elapsed))
-        self.state = st
+        active = self._put_b(v.active)
+        granted = self._step(
+            _handle_vote, active, self._put_b(v.term),
+            self._put_b(v.last), self._put_b(v.lterm), self._full_b(-1),
+            self._full_b(v.sender))
         return VoteResp(sender=self.slot,
-                        term=_ledger.fetch("dist.vote", st.term),
+                        term=_ledger.fetch("dist.vote", self._field("term")),
                         granted=_ledger.fetch("dist.vote", granted),
-                        active=_ledger.fetch("dist.vote", active))
+                        active=_ledger.fetch("dist.vote",
+                                             self._lay.gather(active)))
 
     def tally(self, mask: np.ndarray,
               resps: list[VoteResp]) -> np.ndarray:
@@ -574,17 +639,15 @@ class DistMember:
         lanes; quorum from live member counts.  Returns won lanes
         (already promoted to leader)."""
         votes = np.asarray(mask, np.int32).copy()  # own vote
-        st = self.state
         for r in resps:
-            st = _adopt_term(st, self._put(r.term),
-                             self._full(-1),
-                             self._put(r.active))
+            self._step(_adopt_term, self._put_b(r.term), self._full_b(-1),
+                       self._put_b(r.active))
             votes += (r.granted & r.active).astype(np.int32)
-        quorum = _ledger.fetch("dist.vote", st.nmembers) // 2 + 1
-        still_cand = _ledger.fetch("dist.vote", st.role) == CANDIDATE
+        quorum = _ledger.fetch("dist.vote", self._field("nmembers")) // 2 + 1
+        still_cand = _ledger.fetch("dist.vote",
+                                   self._field("role")) == CANDIDATE
         won = np.asarray(mask, bool) & still_cand & (votes >= quorum)
-        self.state = _become_leader(st, self._put(won),
-                                    slot=self.slot)
+        self._step(_become_leader, self._put_b(won), slot=self.slot)
         lost = np.asarray(mask, bool) & ~won
         if lost.any():
             # Loser backoff: a refused campaign usually means a
@@ -596,14 +659,12 @@ class DistMember:
             # every other slot's band a clear shot while still
             # guaranteeing progress if we are the only candidate left.
             extra = self._draw_timeouts() + self.election
-            stl = self.state
-            self.state = stl._replace(timeout=torch.where(
-                self._put(lost), self._put(extra, np.int32),
-                stl.timeout))
+            self._step(_set_timeout, self._put_b(lost),
+                       self._put_b(extra, np.int32))
         if won.any():
             # Raft safety: uncommitted tail payloads beyond our last
             # may be overwritten by the new term: drop stale keys
-            last = _ledger.fetch("dist.vote", self.state.last)
+            last = _ledger.fetch("dist.vote", self._field("last"))
             for gi in np.nonzero(won)[0]:
                 p = self.payloads[gi]
                 if p and max(p) > int(last[gi]):
@@ -617,22 +678,18 @@ class DistMember:
     def tick(self) -> np.ndarray:
         """Advance timers; returns lanes whose election timer fired
         (caller runs the campaign round-trip)."""
-        st, elect, _beat = tick_batch(self.state)
-        self.state = st
+        elect = self._step(lambda st: tick_batch(st)[:2])
         return _ledger.fetch("dist.tick", elect)
 
     def mark_applied(self, upto: np.ndarray) -> None:
-        st = self.state
-        upto = self._put(upto, np.int32)
-        self.state = st._replace(applied=torch.maximum(
-            st.applied, torch.minimum(upto, st.commit)))
+        self._step(lambda st, up: st._replace(applied=torch.maximum(
+            st.applied, torch.minimum(up, st.commit))),
+            self._put_b(upto, np.int32))
 
     def compact(self) -> None:
-        st = self.state
-        st, _err = compact_batch(st, torch.maximum(st.applied,
-                                                   st.offset))
-        self.state = st
-        cut = _ledger.fetch("dist.compact", st.offset)
+        self._step(lambda st: compact_batch(
+            st, torch.maximum(st.applied, st.offset))[0])
+        cut = _ledger.fetch("dist.compact", self._field("offset"))
         for gi in range(self.g):
             p = self.payloads[gi]
             c = int(cut[gi])
@@ -646,8 +703,7 @@ class DistMember:
         it through the log first, server.go:542-559)."""
         mask = np.ones(self.g, bool) if mask is None \
             else np.asarray(mask, bool)
-        self.state = conf_change_batch(
-            self.state, self._full(bool(add), np.bool_),
-            self._full(slot),
-            self._full(self.slot),
-            active=self._put(mask))
+        self._step(lambda st, a, s, me, act: conf_change_batch(
+            st, a, s, me, active=act),
+            self._full_b(bool(add), np.bool_), self._full_b(slot),
+            self._full_b(self.slot), self._put_b(mask))

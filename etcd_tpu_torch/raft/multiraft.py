@@ -23,6 +23,14 @@ the batch keeps committing.
 Payload bytes stay host-side (a per-group dict keyed by log index): the
 card owns index/term/commit math, the host owns opaque blobs.
 
+:meth:`MultiRaft.shard` splits the groups over a device mesh's ``g``
+axis.  Torch has no SPMD program for one process to run across devices,
+so the engine holds its state as g-blocks and runs every fused round,
+campaign, tick, compaction and conf change once per block, on that
+block's device (an unsharded engine is one block); host inputs are
+split by block and host reads gather the blocks first, so a round's
+host reads do not grow with the block count while its launches do.
+
 Two translations differ in form from the reference, not in result:
 
 - The snapshot install of a lagging follower runs under
@@ -46,6 +54,7 @@ import torch
 
 from .. import default_device
 from ..obs.devledger import ledger as _ledger
+from ..parallel.mesh import BlockLayout
 from .batched import (
     CANDIDATE,
     FOLLOWER,
@@ -340,13 +349,19 @@ class MultiRaft:
     ``default_device(device)`` (CUDA unless the caller passes
     ``device="cpu"``).
 
-    :attr:`errors` holds the per-group error lanes, always as bool
-    tensors on the engine's device: ``overflow`` and ``conflict`` of
-    the most recent round, ``compact_oob`` of the most recent
+    :attr:`errors` holds the per-group error lanes, always as whole [G]
+    bool tensors on the engine's device: ``overflow`` and ``conflict``
+    of the most recent round, ``compact_oob`` of the most recent
     :meth:`compact`.  Consumers read them with ``.cpu().numpy()`` (or
     ``.any()``).  Overflowing groups stall (compact to resume) without
     blocking the batch; conflict lanes mark the reference's panic
     condition (append conflict below commit, log.go:57).
+
+    The state is held as g-blocks (``_blocks[block][slot]``), one block
+    until :meth:`shard` splits the groups over a mesh; every op runs
+    once per block, on that block's device, and host reads gather the
+    blocks first, so a round costs the same host reads at any block
+    count.  :attr:`states` reads as M whole ``GroupState``s either way.
 
     At equal ``seed`` the engine draws the same randomized election
     timeouts as the reference's, so the two agree field for field.
@@ -358,41 +373,104 @@ class MultiRaft:
         self.device = default_device(device)
         self.g, self.m, self.cap = g, m, cap
         self.e = max_batch_ents
+        self.mesh = None
+        self._lay = BlockLayout(g, [self.device])
         rng = np.random.default_rng(seed)
-        self.states: list[GroupState] = []
+        states = []
         for _ in range(m):
             st = init_groups(g, m, cap, election=election, live=live,
                              device=self.device)
             # randomized election timeouts (raft.go:611-617): each
-            # member draws [election, 2*election) per group
+            # member draws [election, 2*election) per group, on the
+            # host and whole-G at any block count
             st = st._replace(timeout=self._put_g(
                 rng.integers(election, 2 * election, size=g), np.int32))
-            self.states.append(st)
+            states.append(st)
+        self._blocks: list[list[GroupState]] = [states]
         self.leader = np.full(g, -1, np.int32)  # member slot per group
         # cached single-addressed-slot routing (None = mixed): keyed
         # off self.leader, recomputed only where the routing changes
         # (campaign wins, conf-change removals); the round dispatch
         # picks the 1/M-work hot-slot program when it is set
         self._route_hot: int | None = None
-        self._hot_sel = None  # cached device router mask
+        self._hot_sel = None  # cached per-block router masks
         # host-side payload store: per-group dict index -> bytes
         self.payloads: list[dict[int, bytes]] = [dict() for _ in range(g)]
         zb = torch.zeros((g,), dtype=torch.bool, device=self.device)
         self.errors = {"overflow": zb, "conflict": zb, "compact_oob": zb}
-        # fault-free rounds reuse one device-resident all-False mask
-        self._no_drop = torch.zeros((m, m, g), dtype=torch.bool,
-                                    device=self.device)
+        # fault-free rounds reuse device-resident all-False masks
+        self._no_drop = self._zero_drop()
+
+    # -- the g-blocks ------------------------------------------------------
+
+    @property
+    def states(self):
+        """The M member slots' ``GroupState``s.  Unsharded: the engine's
+        own list (an item assigned is the engine's new state).
+        Sharded: a tuple of whole states gathered onto the engine's
+        device; assign the whole sequence to replace them, then call
+        :meth:`shard` again, as in the reference."""
+        if not self._lay.sharded:
+            return self._blocks[0]
+        return tuple(self._lay.gather_state([blk[s] for blk in self._blocks])
+                     for s in range(self.m))
+
+    @states.setter
+    def states(self, sts) -> None:
+        per_slot = [self._lay.split_state(st) for st in sts]
+        self._blocks = [[per_slot[s][b] for s in range(len(per_slot))]
+                        for b in range(len(self._lay.devices))]
+
+    def _zero_drop(self) -> list[torch.Tensor]:
+        return [torch.zeros((self.m, self.m, self._lay.block),
+                            dtype=torch.bool, device=d)
+                for d in self._lay.devices]
+
+    def shard(self, mesh) -> None:
+        """Split every member slot's [G]-leading state over the mesh's
+        ``g`` axis (BASELINE config 5 in serving shape): group block
+        ``i`` moves to ``mesh.devices[i][0]`` as a copy, and every later
+        round, campaign, tick, compaction and conf change runs once per
+        block with the [G] host inputs split alike (the [M, M, G] drop
+        masks on their trailing axis).  Groups are independent, so no
+        block reads another's.  Callers re-invoke after wholesale state
+        replacement (restart seeding)."""
+        lay = mesh.layout(self.g)
+        states = list(self.states)
+        self._lay = lay
+        self.mesh = mesh
+        self.device = lay.home
+        self.states = states
+        self.errors = {k: v.to(lay.home) for k, v in self.errors.items()}
+        self._no_drop = self._zero_drop()
+        self._hot_sel = None  # placement changed: rebuild the masks
+
+    def _each(self, fn, *inputs, **static) -> list[list]:
+        """``fn(block_states, *block_inputs, **static)`` once per
+        g-block; keeps each block's new states (``fn``'s first output)
+        and returns its other outputs, each as a per-block list."""
+        outs = [fn(tuple(blk), *x, **static)
+                for blk, *x in zip(self._blocks, *inputs)]
+        self._blocks = [list(o[0]) for o in outs]
+        return [list(v) for v in zip(*(o[1:] for o in outs))]
 
     def _put_g(self, arr, dtype=None) -> torch.Tensor:
-        """[G] host array -> the engine's device."""
+        """[G] host array -> one whole tensor on the engine's device."""
         return torch.from_numpy(
             np.ascontiguousarray(np.asarray(arr, dtype))).to(self.device)
 
-    def _drop(self, drop) -> torch.Tensor:
+    def _put_b(self, arr, dtype=None) -> list[torch.Tensor]:
+        """[G]-leading host array -> its g-blocks."""
+        return self._lay.put(arr, dtype)
+
+    def _drop_blocks(self, drop) -> list[torch.Tensor]:
         if not drop:
             return self._no_drop
-        return torch.from_numpy(_drop_dense(drop, self.m, self.g)).to(
-            self.device)
+        return self._lay.put(_drop_dense(drop, self.m, self.g), axis=2)
+
+    def _drop(self, drop) -> torch.Tensor:
+        """The whole [M, M, G] fault mask on the engine's device."""
+        return self._lay.gather(self._drop_blocks(drop), axis=2)
 
     def _recompute_hot(self) -> None:
         mx = int(self.leader.max(initial=-1))
@@ -401,18 +479,19 @@ class MultiRaft:
             else None
         self._hot_sel = None  # device router mask follows the routing
 
-    def _hot_sel_dev(self, hot: int) -> torch.Tensor:
-        """Device-resident ``leader == hot`` router mask, cached until
-        the routing changes."""
+    def _hot_sel_dev(self, hot: int) -> list[torch.Tensor]:
+        """Device-resident ``leader == hot`` router masks (per block),
+        cached until the routing changes."""
         if self._hot_sel is None:
-            self._hot_sel = self._put_g(self.leader == hot)
+            self._hot_sel = self._put_b(self.leader == hot)
         return self._hot_sel
 
     def _stacked(self, stage: str, field: str) -> np.ndarray:
         """[M, G] host copy of one field of every member slot (one
         device read)."""
-        return _ledger.fetch(stage, torch.stack(
-            [getattr(st, field) for st in self.states]))
+        return _ledger.fetch(stage, self._lay.gather(
+            [torch.stack([getattr(st, field) for st in blk])
+             for blk in self._blocks], axis=1))
 
     # -- elections (batched, fused, droppable) ---------------------------
 
@@ -424,13 +503,12 @@ class MultiRaft:
         """
         g = self.g
         mask = np.ones(g, bool) if mask is None else np.asarray(mask, bool)
-        dense = self._drop(drop)
+        dense = self._drop_blocks(drop)
         _ledger.h2d("multiraft.campaign", mask)
         with _ledger.dispatch("multiraft.campaign"):
-            states, won = _fused_campaign(
-                tuple(self.states), self._put_g(mask), dense, slot=slot)
-        self.states = list(states)
-        won_np = _ledger.fetch("multiraft.campaign", won)
+            (won,) = self._each(_fused_campaign, self._put_b(mask), dense,
+                                slot=slot)
+        won_np = _ledger.fetch("multiraft.campaign", self._lay.gather(won))
         self.leader = np.where(won_np, slot, self.leader).astype(np.int32)
         self._recompute_hot()
         if won_np.any():
@@ -439,7 +517,9 @@ class MultiRaft:
             # deposed leader's payloads at those indices are garbage
             # the new term may overwrite: drop them.
             winner_last = _ledger.fetch("multiraft.campaign",
-                                        self.states[slot].last)
+                                        self._lay.gather(
+                                            [blk[slot].last
+                                             for blk in self._blocks]))
             for gi in np.nonzero(won_np)[0]:
                 p = self.payloads[gi]
                 cut = int(winner_last[gi])
@@ -460,31 +540,29 @@ class MultiRaft:
         one full replicate->respond->commit round.  Returns the
         per-group count of newly committed entries."""
         n_new = np.asarray(n_new, np.int32)
-        dense = self._drop(drop)
+        dense = self._drop_blocks(drop)
         _ledger.h2d("multiraft.round", n_new)
         with _ledger.dispatch("multiraft.round"):
             if self._route_hot is not None:
                 hot = self._route_hot
-                states, newly, valid, base, overflow, conflict = \
-                    _fused_round_hot(
-                        tuple(self.states), self._hot_sel_dev(hot),
-                        self._put_g(n_new), dense, e=self.e, slot=hot)
+                newly, valid, base, overflow, conflict = self._each(
+                    _fused_round_hot, self._hot_sel_dev(hot),
+                    self._put_b(n_new), dense, e=self.e, slot=hot)
             else:
-                states, newly, valid, base, overflow, conflict = \
-                    _fused_round(
-                        tuple(self.states), self._put_g(self.leader),
-                        self._put_g(n_new), dense, e=self.e)
-        self.states = list(states)
-        self.errors["overflow"] = overflow
-        self.errors["conflict"] = conflict
+                newly, valid, base, overflow, conflict = self._each(
+                    _fused_round, self._put_b(self.leader),
+                    self._put_b(n_new), dense, e=self.e)
+        self.errors["overflow"] = self._lay.gather(overflow)
+        self.errors["conflict"] = self._lay.gather(conflict)
         # one device read for the commit delta and the payload keying:
         # payloads are recorded only for groups whose addressed member
         # really IS leader (a deposed member may linger in
         # self.leader), keyed from its pre-append last index; the
         # keying arrays are kept for callers that key their own
         # bookkeeping (the multi-group server's wait registry)
-        host = _ledger.fetch("multiraft.round", torch.stack(
-            [newly, valid.to(torch.int32), base]))
+        host = _ledger.fetch("multiraft.round", self._lay.gather(
+            [torch.stack([n, v.to(torch.int32), b])
+             for n, v, b in zip(newly, valid, base)], axis=1))
         self.last_valid = host[1].astype(bool)
         self.last_base = host[2]
         if data is not None:
@@ -505,25 +583,22 @@ class MultiRaft:
         For callers that track payloads use :meth:`propose`: this path
         skips the per-round valid/base keying in exchange for removing
         the per-round host sync."""
-        dense = self._drop(drop)
-        n_dev = self._put_g(n_new, np.int32)
+        dense = self._drop_blocks(drop)
+        n_dev = self._put_b(n_new, np.int32)
         _ledger.h2d("multiraft.train", np.asarray(n_new, np.int32))
         with _ledger.dispatch("multiraft.train"):
             if self._route_hot is not None:
                 hot = self._route_hot
-                states, newly, overflow, conflict = \
-                    _fused_multi_round_hot(
-                        tuple(self.states), self._hot_sel_dev(hot),
-                        n_dev, dense, e=self.e, k=rounds, slot=hot)
+                newly, overflow, conflict = self._each(
+                    _fused_multi_round_hot, self._hot_sel_dev(hot),
+                    n_dev, dense, e=self.e, k=rounds, slot=hot)
             else:
-                states, newly, overflow, conflict = \
-                    _fused_multi_round(
-                        tuple(self.states), self._put_g(self.leader),
-                        n_dev, dense, e=self.e, k=rounds)
-        self.states = list(states)
-        self.errors["overflow"] = overflow
-        self.errors["conflict"] = conflict
-        return _ledger.fetch("multiraft.train", newly)
+                newly, overflow, conflict = self._each(
+                    _fused_multi_round, self._put_b(self.leader),
+                    n_dev, dense, e=self.e, k=rounds)
+        self.errors["overflow"] = self._lay.gather(overflow)
+        self.errors["conflict"] = self._lay.gather(conflict)
+        return _ledger.fetch("multiraft.train", self._lay.gather(newly))
 
     def replicate(self, drop=None) -> np.ndarray:
         """One replication round for every group: leaders send their
@@ -551,13 +626,14 @@ class MultiRaft:
         log and applies it only once committed."""
         g = self.g
         mask = np.ones(g, bool) if mask is None else np.asarray(mask, bool)
-        mj = self._put_g(mask)
-        addv = torch.full((g,), bool(add), dtype=torch.bool,
-                          device=self.device)
-        slotv = _full(g, slot, mj)
-        for s in range(self.m):
-            self.states[s] = conf_change_batch(
-                self.states[s], addv, slotv, _full(g, s, mj), active=mj)
+        n = self._lay.block
+        for blk, mj in zip(self._blocks, self._put_b(mask)):
+            addv = torch.full((n,), bool(add), dtype=torch.bool,
+                              device=mj.device)
+            slotv = _full(n, slot, mj)
+            for s in range(self.m):
+                blk[s] = conf_change_batch(
+                    blk[s], addv, slotv, _full(n, s, mj), active=mj)
         if not add:
             # deposed-by-removal groups lose their routing entry too
             self.leader = np.where(mask & (self.leader == slot), -1,
@@ -568,11 +644,11 @@ class MultiRaft:
         """The host consumer declares it has applied entries up to
         ``upto[g]`` (clamped to each member's commit).  Compaction
         never slides past this point."""
-        upto = self._put_g(upto, np.int32)
-        for slot in range(self.m):
-            st = self.states[slot]
-            self.states[slot] = st._replace(applied=torch.maximum(
-                st.applied, torch.minimum(upto, st.commit)))
+        for blk, up in zip(self._blocks, self._put_b(upto, np.int32)):
+            for slot in range(self.m):
+                st = blk[slot]
+                blk[slot] = st._replace(applied=torch.maximum(
+                    st.applied, torch.minimum(up, st.commit)))
 
     def compact(self, upto: np.ndarray | None = None) -> None:
         """Compact every member's log at its applied index
@@ -580,16 +656,21 @@ class MultiRaft:
         compaction point are dropped from the host store.  Call
         :meth:`mark_applied` first.  Out-of-bounds lanes skip
         compaction (``errors["compact_oob"]``, never batch-fatal)."""
-        oob = torch.zeros((self.g,), dtype=torch.bool, device=self.device)
-        up = None if upto is None else self._put_g(upto, np.int32)
-        for slot in range(self.m):
-            st = self.states[slot]
-            idx = st.applied if up is None else torch.minimum(
-                st.applied, up)
-            st, err = compact_batch(st, torch.maximum(idx, st.offset))
-            oob = oob | err
-            self.states[slot] = st
-        self.errors["compact_oob"] = oob
+        ups = [None] * len(self._blocks) if upto is None \
+            else self._put_b(upto, np.int32)
+        oobs = []
+        for blk, up, dev in zip(self._blocks, ups, self._lay.devices):
+            oob = torch.zeros((self._lay.block,), dtype=torch.bool,
+                              device=dev)
+            for slot in range(self.m):
+                st = blk[slot]
+                idx = st.applied if up is None else torch.minimum(
+                    st.applied, up)
+                st, err = compact_batch(st, torch.maximum(idx, st.offset))
+                oob = oob | err
+                blk[slot] = st
+            oobs.append(oob)
+        self.errors["compact_oob"] = self._lay.gather(oobs)
         cut = self._stacked("multiraft.compact", "offset").min(axis=0)
         for gi in range(self.g):
             p = self.payloads[gi]
@@ -602,9 +683,11 @@ class MultiRaft:
         """Advance every member's timers; campaign where they fire.
         ``drop`` faults apply to the resulting vote traffic too."""
         for slot in range(self.m):
-            st, elect, _beat = tick_batch(self.states[slot])
-            self.states[slot] = st
-            fire = _ledger.fetch("multiraft.tick", elect)
+            elects = []
+            for blk in self._blocks:
+                blk[slot], elect, _beat = tick_batch(blk[slot])
+                elects.append(elect)
+            fire = _ledger.fetch("multiraft.tick", self._lay.gather(elects))
             if fire.any():
                 self.campaign(slot, fire, drop=drop)
 
@@ -627,4 +710,5 @@ class MultiRaft:
         return self.payloads[group].get(index)
 
     def log_terms(self, slot: int) -> np.ndarray:
-        return _ledger.fetch("multiraft.view", self.states[slot].log_term)
+        return _ledger.fetch("multiraft.view", self._lay.gather(
+            [blk[slot].log_term for blk in self._blocks]))

@@ -34,7 +34,8 @@ copied line for line, the engine state in tensors on
 the reference in these points only:
 
 - the restart seeds the engine with tensors on the server's device;
-- ``mesh=`` raises (the mesh-sharded engine is not ported yet);
+- ``mesh=`` takes the port's ``parallel.GroupMesh`` (which may be
+  virtual shards of one card);
 - snapshots hash through ``ops.crc_kernel.auto_crc32c`` on the
   server's device (no silent host fallback), and streamed snapshot
   chunks verify through ``ChunkVerifier`` on that device;
@@ -240,10 +241,12 @@ class DistServer:
             self._peer_ssl_srv = peer_tls.server_context()
             self._peer_ssl_cli = peer_tls.client_context()
         if mesh is not None:
-            # before any disk mutation, as the reference validates
-            raise NotImplementedError(
-                "DistServer(mesh=): the mesh-sharded engine is not "
-                "ported yet")
+            # validate BEFORE any disk mutation: failing after the
+            # fresh WAL is created would make the corrected retry
+            # look like a restart (fresh=False) and skip bootstrap
+            from ..parallel.mesh import check_group_divisible
+
+            check_group_divisible(mesh, g)
         self.name = name or f"dist{slot}"
         self.snap_count = snap_count or DEFAULT_SNAP_COUNT
         self.tick_interval = tick_interval
@@ -613,7 +616,12 @@ class DistServer:
                 index=0, term=0,
                 data=GroupEntry(kind=K_FRONTIER,
                                 payload=zero + zero).marshal())])
-        self.mesh = None
+        # intra-host scale-out: this host's [G] batch split over a
+        # local device mesh (after restart seeding so the replayed
+        # state gets placed too)
+        self.mesh = mesh
+        if mesh is not None:
+            self.mr.shard(mesh)
         self._refresh_member_cache()
 
     def _refresh_member_cache(self) -> None:

@@ -1,6 +1,7 @@
 """Co-hosted multi-group server: G raft groups behind the serving seams
-(the port of ``etcd_tpu/server/multigroup.py``; the reference's ``mesh=``
-sharding is not ported yet).
+(the port of ``etcd_tpu/server/multigroup.py``; ``mesh=`` splits the
+group batch over a device mesh, which may be virtual shards of one
+card).
 
 The reference binds ONE raft group to one process
 (etcdserver/server.go:191-218); its in-process cluster tests wire N
@@ -123,13 +124,19 @@ class MultiGroupServer:
                  sync_interval: float = 0.5,
                  spare_member_slots: int = 1,
                  client_urls: list[str] | None = None,
-                 device=None):
+                 mesh=None, device=None):
         from .. import default_device
         from ..raft.multiraft import MultiRaft
 
         # resolved before any disk mutation: without CUDA (and no
         # device="cpu") construction raises here
         self.device = default_device(device)
+        if mesh is not None:
+            # validate BEFORE any disk mutation (a post-WAL failure
+            # would make the corrected retry look like a restart)
+            from ..parallel.mesh import check_group_divisible
+
+            check_group_divisible(mesh, g)
 
         # ``m`` live members now; ``spare_member_slots`` empty slots
         # are allocated so runtime AddMember has somewhere to land
@@ -209,6 +216,12 @@ class MultiGroupServer:
                 index=0, term=0,
                 data=GroupEntry(kind=1, payload=zero + zero)
                 .marshal())])
+        # intra-card / intra-host scale-out: the co-hosted batch split
+        # over a device mesh (after restart seeding so the replayed
+        # state gets placed too)
+        self.mesh = mesh
+        if mesh is not None:
+            self.mr.shard(mesh)
 
     # -- bootstrap / restart ---------------------------------------------
 

@@ -2,9 +2,10 @@
 on the CPU (``ETCD_TORCH_DEVICE=cpu``) serves a PUT and a GET over HTTP
 and restarts from its data dir; three ``--dist-slot`` processes serve a
 3-host cluster; without CUDA and without that variable it exits non-zero
-naming CUDA; the modes not ported yet exit 2 (the front door and the
-mesh by subprocess, the others, ``--dist-roles`` and
-``--dist-mesh-devices`` among them, through ``main``)."""
+naming CUDA; the modes not ported yet exit 2 (the front door by
+subprocess, also with a mesh flag beside it, the others, ``--dist-roles``
+among them, also beside ``--dist-mesh-devices``, through ``main``).  The
+mesh flags themselves are tested in tests/test_torch_mesh_servers.py."""
 
 import json
 import os
@@ -116,7 +117,8 @@ def test_cli_without_cuda_exits_naming_cuda(tmp_path):
 
 @pytest.mark.parametrize("args", [
     ["--cohosted-groups", "4", "--frontdoor", "on"],
-    ["--cohosted-groups", "4", "--cohosted-mesh-devices", "2"],
+    ["--cohosted-groups", "4", "--cohosted-mesh-devices", "2",
+     "--frontdoor", "on"],
 ])
 def test_cli_front_door_and_mesh_exit_2(tmp_path, args):
     r = _cli([*args, "--data-dir", str(tmp_path / "d")],
@@ -130,7 +132,7 @@ def test_cli_front_door_and_mesh_exit_2(tmp_path, args):
      "--dist-peers", "http://127.0.0.1:1,http://127.0.0.1:2"],
     ["--proxy", "on"],
     [],
-    ["--cohosted-groups", "4", "--dist-slot", "0",
+    ["--cohosted-groups", "4", "--dist-slot", "0", "--dist-roles", "2",
      "--dist-mesh-devices", "2",
      "--dist-peers", "http://127.0.0.1:1,http://127.0.0.1:2"],
 ])

@@ -298,10 +298,15 @@ def test_dist_server_without_cuda_raises(tmp_path, monkeypatch):
 
 
 def test_dist_server_mesh_not_ported_yet(tmp_path):
+    """``mesh=`` is ported now: a group count that does not split over
+    the mesh's g-axis raises the reference's ValueError before any disk
+    mutation."""
+    from etcd_tpu_torch.parallel import group_mesh, local_devices
     from etcd_tpu_torch.server.distserver import DistServer
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="not divisible by mesh g-axis"):
         DistServer(str(tmp_path / "d"), slot=0,
                    peer_urls=["http://127.0.0.1:1", "http://127.0.0.1:2"],
-                   g=4, mesh=object(), device="cpu")
+                   g=6, mesh=group_mesh(8, devices=local_devices("cpu")),
+                   device="cpu")
     assert not (tmp_path / "d").exists()

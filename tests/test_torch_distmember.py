@@ -531,6 +531,16 @@ def test_port_views_count_device_reads():
 
 
 def test_port_shard_not_ported_yet():
+    """``shard`` is ported now: a mesh whose g-axis does not divide G
+    raises the reference's ValueError, and a dividing one splits the
+    state into g-blocks that read back as the same whole state."""
+    from etcd_tpu_torch.parallel import group_mesh, local_devices
+
     mm = TDistMember(G, M, 0, CAP, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mm.shard(None)
+    with pytest.raises(ValueError, match="not divisible by mesh g-axis"):
+        mm.shard(group_mesh(3, devices=local_devices("cpu")))
+    before = {f: _np(getattr(mm.state, f)).copy() for f in mm.state._fields}
+    mm.shard(group_mesh(8, devices=local_devices("cpu")))
+    assert len(mm._blocks) == 4
+    for f, v in before.items():
+        np.testing.assert_array_equal(_np(getattr(mm.state, f)), v)
