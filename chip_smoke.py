@@ -9,7 +9,7 @@ with g++, all at once, measures the rate of the 1-bit and int8
 (``etcd_tpu_torch.scripts.mma_rate``), and holds each kernel bit for bit
 against its plain torch version, the raw-CRC kernel also at rows wider
 than its 4096 bytes (L = 4097, 8192, 65536: folded from 4096-byte
-slabs).  Then it drives seven paths at full size:
+slabs).  Then it drives eight paths at full size:
 
 1. the main path, ``etcd_tpu_torch.parallel.data_plane_step``: 1,048,576
    WAL records of 256-380 bytes in 384-byte rows (BASELINE config 1,
@@ -78,7 +78,26 @@ slabs).  Then it drives seven paths at full size:
    co-hosted server at 10,000 groups x 5 on 2 virtual shards serving
    400 PUTs, restarted with ``storage_backend="tpu"`` through the kernel
    and every key read back; and ``DistMember`` at 10,000 groups on 2
-   virtual shards held against unsharded members call for call.
+   virtual shards held against unsharded members call for call;
+8. the classic single-group server, the default etcd process
+   (``etcd_tpu_torch.scripts.classic_bench``, whose docstring has the
+   sizes): a data dir holding a snapshot of 100,000 keys of 256-byte
+   values over 64 directories (~35 MB of JSON) and a WAL tail of 10,000
+   PUTs (one default ``--snapshot-count``) restarted by ``new_server``
+   under ``--storage-backend`` host, tpu and auto, which must agree in
+   hard state, log and store, read every one of the 110,000 keys back,
+   tpu launching the raw-CRC kernel, and raise on a byte flipped inside
+   a WAL record under tpu; then three ``python -m etcd_tpu_torch.cli
+   --name nK --initial-cluster ...`` processes with the reference's
+   defaults (the front door, ``--storage-backend auto``, CUDA) taking
+   12,000 PUTs of 256-byte values from 16 keep-alive connections over 64
+   namespaces, past the leader's default snapshot, every acked key read
+   back from every member; a burst on a rate-limited tenant shed with
+   429 while the other namespaces' writes are acked, ``/metrics``,
+   ``/v2/stats/frontdoor``, ``/v2/machines`` and a watch through the
+   front door; ``--proxy on`` and ``--proxy readonly``; and a follower
+   SIGKILLed, 1,000 PUTs on the other two, the follower restarted with
+   ``--storage-backend tpu``, caught up and read back.
 
 Each path is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Prints, on its last lines: one JSON
@@ -124,8 +143,8 @@ from etcd_tpu_torch.parallel import (  # noqa: E402
     place_step_inputs, replay_commit_local, shard_grid, shard_leading)
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
-    cohosted_bench, config5_bench, crc_variants_bench, dist_bench,
-    kernel_sweep, mma_rate)
+    classic_bench, cohosted_bench, config5_bench, crc_variants_bench,
+    dist_bench, kernel_sweep, mma_rate)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
 from etcd_tpu_torch.wal import WAL  # noqa: E402
@@ -161,6 +180,13 @@ DIST_CONNS, DIST_WINDOW, DIST_DEPTH, DIST_BATCH_ENTS = 8, 512, 8, 128
 # (4, 2) mesh for the step and the engine; 2 for the server and the
 # dist engine at 10,000 groups
 MESH_SHARDS, C5_ITERS, C5_SERVE_SHARDS, C5_PUTS = 8, 10, 2, 400
+# the classic server (the default process): a restart dir of 100,000
+# snapshot keys and a 10,000-PUT WAL tail; three CLI members taking
+# 12,000 PUTs of 256 B from 16 connections over 64 namespaces, a burst
+# of 500 on the rate-limited tenant, 1,000 PUTs with a member down
+CLASSIC_KEYS, CLASSIC_TAIL, CLASSIC_DIRS = 100_000, 10_000, 64
+CLASSIC_PUTS, CLASSIC_CONNS, CLASSIC_BURST, CLASSIC_EXTRA = \
+    12_000, 16, 500, 1_000
 
 # The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
@@ -947,6 +973,140 @@ def sharded(buf_h, lens_h, stored_h, rng, card: str) -> dict:
                 one["profile"]["launches_per_round"]}
 
 
+def classic(rng, card: str) -> dict:
+    """Phase 15: the classic single-group server (module docstring,
+    path 8).  Returns the restart's numbers for the kernels line."""
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_classic_")
+    try:
+        # (a) the restart at a deployment's size, under each backend
+        src = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        made = classic_bench.write_restart_dir(
+            src, keys=CLASSIC_KEYS, dirs=CLASSIC_DIRS, tail=CLASSIC_TAIL)
+        print(f"classic restart dir: a {made['snap_bytes']} B snapshot of "
+              f"{CLASSIC_KEYS} keys, {made['wal_bytes']} B of WAL "
+              f"({made['records']} records) in "
+              f"{time.perf_counter() - t0} s", flush=True)
+        outs = {}
+        for b in BACKENDS:
+            o = classic_bench.restart(src, b)
+            loaded = cohosted_bench.snapshot_load(src, backend=b)
+            o["snapshot_load"] = loaded
+            outs[b] = o
+            print(f"classic restart --storage-backend {b}: {o['seconds']} s "
+                  f"(then {o['applied']} committed entries applied in "
+                  f"{o['apply_s']} s), lane {o['lane']} ({o['why']}), "
+                  f"{o['launches']} raw_crc launches; snapshot load alone "
+                  f"{loaded['seconds']} s, {loaded['launches']} launches; "
+                  f"auto_crc32c's race: device wins "
+                  f"{o['device_hash_wins']} [{card}]", flush=True)
+        check(outs["host"]["launches"] == 0, "the host backend launched "
+              "the kernel")
+        check(outs["tpu"]["launches"] > 0, "the classic tpu restart did not "
+              "launch the raw-CRC kernel")
+        check(outs["tpu"]["lane"] == "stream",
+              f"the tpu restart took lane {outs['tpu']['lane']}")
+        for b in BACKENDS[1:]:
+            for k in ("hard_state", "last", "store", "applied"):
+                check(outs[b][k] == outs["host"][k],
+                      f"classic restart under {b} != under host in {k}")
+        check(outs["host"]["last"] == (CLASSIC_KEYS + CLASSIC_TAIL, 1),
+              f"restarted log ends at {outs['host']['last']}")
+        store = outs["tpu"]["server"].store
+        for k in made["keys"]:
+            check(store.get(k, False, False).node.value, f"{k} lost")
+        read_back = len(made["keys"])
+        for o in outs.values():
+            del o["server"], o["store"]
+        del store
+        replay = classic_bench.replay_alone(src, "tpu", CLASSIC_KEYS)
+        check(replay["launches"] > 0, "the replay alone did not launch")
+        bad = os.path.join(tmp, "bad")
+        shutil.copytree(src, bad)
+        pos = classic_bench.flip_in_record(os.path.join(bad, "wal"))
+        try:
+            classic_bench.restart(bad, "tpu")
+            raised = None
+        except Exception as e:  # noqa: BLE001 -- the gate is that it raises
+            raised = type(e).__name__
+        check(raised is not None and raised != "TornTailError",
+              f"a byte flipped at {pos} of the WAL: {raised}")
+        print(f"classic restart: all backends give hard state, log "
+              f"{outs['host']['last']} and store equal; {read_back} keys "
+              f"read back; tpu replay alone {replay['seconds']} s, "
+              f"{replay['launches']} launches, largest batch "
+              f"{replay['largest']}; a byte flipped at {pos} raises "
+              f"{raised} under tpu [{card}]", flush=True)
+        n, length = replay["largest"]
+        k_replay = kernel_at(torch.from_numpy(records(rng, n, length)).cuda(),
+                             reps=20)
+        rows = -(-made["snap_bytes"] // crc_kernel.CHUNK)
+        k_snap = kernel_at(torch.from_numpy(records(
+            rng, rows, crc_kernel.CHUNK)).cuda(), reps=20)
+        for k in (k_replay, k_snap):
+            check(k["max_abs_err"] == 0, f"raw_crc != plain at {k['shape']}")
+        print(f"raw_crc at the classic replay's largest batch "
+              f"{k_replay['shape']}: {k_replay['ms']} ms, bound "
+              f"{k_replay['bound_ms']} ms, plain {k_replay['plain_ms']} ms; "
+              f"at the snapshot's {k_snap['shape']}: {k_snap['ms']} ms, "
+              f"bound {k_snap['bound_ms']} ms, plain {k_snap['plain_ms']} ms "
+              f"[{card}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b)-(e) three CLI members with the reference's defaults
+    c = classic_bench.cluster(puts=CLASSIC_PUTS, conns=CLASSIC_CONNS,
+                              namespaces=CLASSIC_DIRS, burst=CLASSIC_BURST,
+                              extra=CLASSIC_EXTRA)
+    ld, one = c["load"], c["load_one_down"]
+    adm = c["admission"]
+    print(f"classic cluster (3 CLI members, default flags): listening after "
+          f"{c['listen_s']} s; {ld['acked']} PUTs of "
+          f"{classic_bench.VALUE_LEN} B from {CLASSIC_CONNS} connections "
+          f"over {CLASSIC_DIRS} namespaces in "
+          f"{ld['seconds']} s = {ld['acked_writes_per_s']} acked writes/s, "
+          f"p50 {ld['p50_ms']} ms, p99 {ld['p99_ms']} ms, max "
+          f"{ld['max_ms']} ms ({ld['retries']} timed-out PUTs retried); "
+          f"{c['leader_snapshots']} snapshot(s) in the leader's snap dir; "
+          f"followers caught up in {c['catch_up_s']} s, {c['read_back']} "
+          f"keys read back from every member [{card}]", flush=True)
+    print(f"classic leader spans: {json.dumps(c['leader_spans'])}",
+          flush=True)
+    print(f"classic front door: a burst of {adm['burst']} PUTs on 'hot' "
+          f"shed {adm['shed']} with 429/406 (Retry-After "
+          f"{adm['retry_after']}), {adm['other_acked']} writes to other "
+          f"namespaces all acked meanwhile, /metrics shed_write "
+          f"{adm['shed_write_total']}; /v2/stats/frontdoor, /v2/machines and "
+          f"a watch served; --proxy on passed a PUT and a GET, --proxy "
+          f"readonly answered 501 [{card}]", flush=True)
+    print(f"classic member restart: {c['killed']} SIGKILLed, "
+          f"{one['acked']} PUTs acked by the other two in {one['seconds']} s "
+          f"(p50 {one['p50_ms']} ms); restarted with --storage-backend tpu: "
+          f"listening {c['restart_listen_s']} s and caught up "
+          f"{c['restart_catch_up_s']} s after its spawn "
+          f"({c['restart_replay']}); "
+          f"{c['read_back_after_restart']} acked keys read back from every "
+          f"member [{card}]", flush=True)
+    check("stream-route replay" in c["restart_replay"],
+          f"the restarted member's replay: {c['restart_replay']}")
+    print(json.dumps({"classic": {
+        "restart_s": {b: outs[b]["seconds"] for b in BACKENDS},
+        "restart_launches": {b: outs[b]["launches"] for b in BACKENDS},
+        "lane": {b: outs[b]["lane"] for b in BACKENDS},
+        "snapshot_load_s": {b: outs[b]["snapshot_load"]["seconds"]
+                            for b in BACKENDS},
+        "acked_writes_per_s": ld["acked_writes_per_s"],
+        "p50_ms": ld["p50_ms"], "p99_ms": ld["p99_ms"],
+        "max_ms": ld["max_ms"], "retries": ld["retries"],
+        "listen_s": c["listen_s"],
+        "restart_listen_s": c["restart_listen_s"],
+        "restart_catch_up_s": c["restart_catch_up_s"], "card": card}}),
+        flush=True)
+    return {"restarts": outs, "replay": replay, "kernel": k_replay,
+            "snapshot": k_snap, "cluster": c}
+
+
 def plain_step(buf, lens, stored, seed, state, *raft):
     """data_plane_step with the plain CRC in place of the kernel."""
     raw = crc_cuda.raw_crc_plain(buf)
@@ -1146,6 +1306,9 @@ def main() -> int:
     dist_run = dist(rng, card)
     # 14. the sharded data plane (config 5)
     mesh_run = sharded(buf_h, lens_h, stored_h, rng, card)
+    # 15. the classic single-group server (the default process)
+    reset_launches()
+    classic_run = classic(rng, card)
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -1273,6 +1436,30 @@ def main() -> int:
         "serving_launches_per_round": {
             "sharded": mesh_run["config5"]["serving_launches_per_round"],
             "unsharded": mesh_run["serving_unsharded_launches_per_round"]}})
+    # raw_crc on the classic server's restart: the tpu and auto restarts
+    # (WAL replay and the snapshot hash), timed at the replay's largest
+    # batch and at the snapshot's shape
+    rs, k = classic_run["restarts"], classic_run["kernel"]
+    kernels.append({
+        "name": "raw_crc/classic_restart", "route": "cuda",
+        "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+        "replaces": "etcd_tpu/ops/crc_pallas.py:40",
+        "launches": rs["tpu"]["launches"] + rs["auto"]["launches"],
+        "max_abs_err": k["max_abs_err"], "bit_exact": k["max_abs_err"] == 0,
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
+        "library_ms": None, "design": RAW_DESIGN,
+        "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"],
+        "launches_by_backend": {b: rs[b]["launches"] for b in BACKENDS},
+        "lane_by_backend": {b: rs[b]["lane"] for b in BACKENDS},
+        "restart_s": {b: rs[b]["seconds"] for b in BACKENDS},
+        "replay_launches": classic_run["replay"]["launches"],
+        "snapshot_load_launches": {
+            b: rs[b]["snapshot_load"]["launches"] for b in BACKENDS},
+        "snapshot_shape": classic_run["snapshot"]["shape"],
+        "snapshot_ms": classic_run["snapshot"]["ms"],
+        "snapshot_plain_ms": classic_run["snapshot"]["plain_ms"],
+        "snapshot_bound_ms": classic_run["snapshot"]["bound_ms"]})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

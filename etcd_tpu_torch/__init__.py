@@ -9,7 +9,9 @@ ported so far:
                 torch versions), its variant formulations, chain
                 verify, quorum commit index, the snapshot hash
                 (``crc_kernel.py``)
-    raft/       the [G]-batched Raft engine (``batched.py``), the
+    raft/       the single-group Raft state machine, log and node
+                driver (``core.py``, ``log.py``, ``node.py``; copies),
+                the [G]-batched Raft engine (``batched.py``), the
                 co-hosted G x M runtime on it (``multiraft.py``) and one
                 host's member slot of G groups (``distmember.py``)
     parallel/   the fused single-card data-plane step, and its
@@ -21,25 +23,31 @@ ported so far:
     snap/       the snapshotter and the streamed-snapshot chunk
                 verifier
     store/      the hierarchical KV store with TTLs and watches (copy)
-    server/     the co-hosted multi-group server (``multigroup.py``),
-                the distributed tier (``distserver.py`` with
-                ``distpipe.py``, ``peerlink.py``, ``readindex.py``) and
-                the seams they share (``server.py``)
-    api/        the HTTP client API
-    cli.py      ``python -m etcd_tpu_torch.cli --cohosted-groups G`` or
-                ``--dist-slot N --dist-peers ...``, either with
-                ``--cohosted-mesh-devices`` / ``--dist-mesh-devices``
+    server/     the classic single-group server (``server.py``:
+                ``EtcdServer``, ``new_server``; ``config.py``,
+                ``sender.py``), the front door every tier serves through
+                (``frontdoor.py``), the co-hosted multi-group server
+                (``multigroup.py``) and the distributed tier
+                (``distserver.py`` with ``distpipe.py``, ``peerlink.py``,
+                ``readindex.py``)
+    api/        the HTTP client and peer API, the client library and
+                the proxy (copies)
+    discovery/  the discovery bootstrap (a copy)
+    cli.py      ``python -m etcd_tpu_torch.cli``: the classic server by
+                default, ``--cohosted-groups G``, ``--dist-slot N
+                --dist-peers ...`` (either with ``--cohosted-mesh-devices``
+                / ``--dist-mesh-devices``), ``--proxy``, ``--discovery``
     wire/       the protobuf records, requests and the dist tier's
                 frames (copies)
     utils/      errors, fsync helpers, failpoints, backoff, the wait
                 registry, the tracer, flags, TLS (copies)
-    obs/        roofline accounting, a metrics registry, the device
-                ledger
+    obs/        roofline accounting, the metrics registry and its
+                Prometheus text, the flight recorder, the device ledger
     native.py   ctypes binding of ``native/walscan.cc`` (built with g++
                 at first use)
     scripts/    the raw-CRC variant race, the kernel sweep, the host
-                WAL builder, the co-hosted, dist and config-5 phases
-                of ``chip_smoke.py``, one dist host per process
+                WAL builder, the co-hosted, dist, config-5 and classic
+                phases of ``chip_smoke.py``, one dist host per process
     entry.py    example inputs, the entry point of that step and the
                 sharded dry run
     csrc/       CUDA C++ sources, built with nvcc at first use

@@ -1,24 +1,34 @@
-"""The HTTP client API (``http.py``: /v2/keys, /v2/watch, /v2/machines,
-/v2/stats/*), the port of the client side of ``etcd_tpu/api/http.py``."""
+"""HTTP API: /v2/keys client API, /raft peer API, proxy mode, and the
+Python client library (reference etcdserver/etcdhttp/, proxy/, client/;
+the port of ``etcd_tpu/api``)."""
 
 from .http import (
     DEFAULT_SERVER_TIMEOUT,
     DEFAULT_WATCH_TIMEOUT,
+    EtcdRequestHandler,
     KEYS_PREFIX,
     MACHINES_PREFIX,
-    EtcdRequestHandler,
     make_client_handler,
+    make_peer_handler,
     parse_request,
     serve,
 )
+from .client import Client, ClientError
+from .proxy import Director, NewProxyHandler, ReadonlyProxyHandler
 
 __all__ = [
-    "DEFAULT_SERVER_TIMEOUT",
-    "DEFAULT_WATCH_TIMEOUT",
-    "EtcdRequestHandler",
-    "KEYS_PREFIX",
-    "MACHINES_PREFIX",
     "make_client_handler",
+    "make_peer_handler",
     "parse_request",
     "serve",
+    "EtcdRequestHandler",
+    "Client",
+    "ClientError",
+    "Director",
+    "NewProxyHandler",
+    "ReadonlyProxyHandler",
+    "KEYS_PREFIX",
+    "MACHINES_PREFIX",
+    "DEFAULT_SERVER_TIMEOUT",
+    "DEFAULT_WATCH_TIMEOUT",
 ]

@@ -1,14 +1,15 @@
-"""HTTP client API (reference etcdserver/etcdhttp/http.go; the port's
-copy of ``etcd_tpu/api/http.py``, client side only).
+"""HTTP API (reference etcdserver/etcdhttp/http.go; the port's copy of
+``etcd_tpu/api/http.py``).
 
-The client mux serves /v2/keys (GET with wait/stream/quorum; PUT with
+Client mux serves /v2/keys (GET with wait/stream/quorum; PUT with
 set/update/create/CAS via prevExist/prevValue/prevIndex; POST unique
-in-order create; DELETE with CAD), the batched /v2/watch stream,
-/v2/machines and /v2/stats/{self,store,leader,spans}.  Response headers
-carry X-Etcd-Index / X-Raft-Index / X-Raft-Term on every reply
-(http.go:331-334).  Not ported yet: the peer mux (/raft), /metrics,
-/v2/stats/slo and /v2/stats/timeseries, and the ``http.client``
-failpoint; they come with the servers and tooling that use them.
+in-order create; DELETE with CAD) and /v2/machines; the peer mux
+serves /raft for protobuf raft messages.  Response headers carry
+X-Etcd-Index / X-Raft-Index / X-Raft-Term on every reply
+(http.go:331-334).  The same handlers answer for the classic server,
+the co-hosted ``MultiGroupServer`` and the ``DistServer``;
+``/v2/stats/slo`` and ``/v2/stats/timeseries`` answer 404 until the SLO
+layer and the time-series ring are ported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ..server.server import gen_id
+from ..server import EtcdServer, gen_id
+from ..server.frontdoor import LISTEN_BACKLOG
+from ..utils import faults as _faults
 from ..utils.errors import (
     ECODE_INDEX_NAN,
     ECODE_INVALID_FIELD,
@@ -32,6 +35,8 @@ from ..utils.errors import (
     ECODE_TTL_NAN,
     EtcdError,
 )
+from ..wire import Message
+from ..wire.proto import ProtoError
 from ..wire.requests import Request
 
 log = logging.getLogger(__name__)
@@ -40,11 +45,8 @@ KEYS_PREFIX = "/v2/keys"
 WATCH_PREFIX = "/v2/watch"
 MACHINES_PREFIX = "/v2/machines"
 STATS_PREFIX = "/v2/stats"
-
-#: listen backlog of the client server: the socketserver default of 5
-#: resets a connection burst in the kernel (the reference's front door
-#: module holds the same constant)
-LISTEN_BACKLOG = 1024
+METRICS_PREFIX = "/metrics"
+RAFT_PREFIX = "/raft"
 
 DEFAULT_SERVER_TIMEOUT = 0.5  # reference http.go:29
 DEFAULT_WATCH_TIMEOUT = 300.0  # reference http.go:32
@@ -159,11 +161,12 @@ def parse_request(method: str, path: str, form: dict[str, list[str]],
 
 class EtcdRequestHandler(BaseHTTPRequestHandler):
     """One handler class; the server instance carries the routing
-    config (CORS origins, timeouts)."""
+    config (client vs peer mux, CORS origins)."""
 
     protocol_version = "HTTP/1.1"
-    # injected by make_client_handler: the co-hosted MultiGroupServer
-    etcd = None
+    # injected by serve()/make_*_handler via the server object
+    etcd: EtcdServer = None
+    mode = "client"  # or "peer"
     cors: set[str] | None = None
     server_timeout = DEFAULT_SERVER_TIMEOUT
     watch_timeout = DEFAULT_WATCH_TIMEOUT
@@ -248,10 +251,32 @@ class EtcdRequestHandler(BaseHTTPRequestHandler):
         path = urllib.parse.unquote(
             urllib.parse.urlsplit(self.path).path)
         try:
+            # surface-wide failpoint: err answers 503,
+            # drop closes the connection without a byte, delay
+            # stalls the handler thread (a slow frontend)
+            try:
+                if self.mode == "peer":
+                    act = _faults.hit("http.peer")
+                else:
+                    act = _faults.hit("http.client")
+                if act == _faults.DROP:
+                    self.close_connection = True
+                    return
+            except OSError:
+                self._reply(503, b"injected fault\n")
+                return
+            if self.mode == "peer":
+                if path == RAFT_PREFIX:
+                    self._serve_raft(method)
+                else:
+                    self._reply(404, b"404 page not found\n")
+                return
             if path == WATCH_PREFIX:
                 self._serve_watch_many(method)
             elif path == MACHINES_PREFIX:
                 self._serve_machines(method)
+            elif path == METRICS_PREFIX:
+                self._serve_metrics(method)
             elif path.startswith(STATS_PREFIX):
                 self._serve_stats(method, path)
             elif path.startswith(KEYS_PREFIX):
@@ -537,10 +562,28 @@ class EtcdRequestHandler(BaseHTTPRequestHandler):
 
             body = tracer.snapshot_json()
         else:
+            # slo and timeseries among them: the SLO layer and the
+            # time-series ring are not ported yet
             self._reply(404, b"404 page not found\n")
             return
         self._reply(200, body,
                     {"Content-Type": "application/json"})
+
+    def _serve_metrics(self, method: str) -> None:
+        """GET /metrics — Prometheus text exposition of the process
+        registry (observability): wal fsync, apply batches,
+        elections, peer sends, ack-RTT, span histograms and the
+        device/host transfer ledger, all from obs/metrics.py's
+        catalog."""
+        if method != "GET":
+            self._reply(405, b"Method Not Allowed\n",
+                        {"Allow": "GET"})
+            return
+        from ..obs.exporter import CONTENT_TYPE, render_prometheus
+        from ..obs.metrics import registry
+
+        self._reply(200, render_prometheus(registry),
+                    {"Content-Type": CONTENT_TYPE})
 
     def _serve_machines(self, method: str) -> None:
         """Reference serveMachines (http.go:111-117)."""
@@ -558,6 +601,26 @@ class EtcdRequestHandler(BaseHTTPRequestHandler):
             self.end_headers()
             return
         self._reply(200, body)
+
+    def _serve_raft(self, method: str) -> None:
+        """Reference serveRaft (http.go:119-143)."""
+        if method != "POST":
+            self._reply(405, b"Method Not Allowed\n", {"Allow": "POST"})
+            return
+        length = int(self.headers.get("Content-Length") or 0)
+        b = self.rfile.read(length)
+        try:
+            m = Message.unmarshal(b)
+        except ProtoError as e:
+            log.warning("etcdhttp: error unmarshaling raft message: %s", e)
+            self._reply(400, b"error unmarshaling raft message\n")
+            return
+        try:
+            self.etcd.process(m)
+        except Exception as e:
+            self._write_error(e)
+            return
+        self._reply(204, b"")
 
     def _handle_watch(self, watcher, stream: bool,
                       keepalive: float | None = None) -> None:
@@ -620,15 +683,20 @@ class EtcdRequestHandler(BaseHTTPRequestHandler):
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
+    # centralized client/peer backlog: the socketserver
+    # default of 5 RSTs a connection burst in the kernel before
+    # admission control can answer 429
     request_queue_size = LISTEN_BACKLOG
 
 
-def _make_handler_class(etcd, cors: set[str] | None = None,
+def _make_handler_class(etcd: EtcdServer, mode: str,
+                        cors: set[str] | None = None,
                         server_timeout: float = DEFAULT_SERVER_TIMEOUT,
                         watch_timeout: float = DEFAULT_WATCH_TIMEOUT,
                         watch_keepalive: float = DEFAULT_WATCH_KEEPALIVE):
     return type("Handler", (EtcdRequestHandler,), {
         "etcd": etcd,
+        "mode": mode,
         "cors": cors,
         "server_timeout": server_timeout,
         "watch_timeout": watch_timeout,
@@ -636,11 +704,15 @@ def _make_handler_class(etcd, cors: set[str] | None = None,
     })
 
 
-def make_client_handler(etcd, cors: set[str] | None = None, **kw):
-    """Reference NewClientHandler (http.go:38-53): ``etcd`` is the
-    server that answers (``do``, ``index``, ``term``, ``store``,
-    ``cluster_store``, the stats objects)."""
-    return _make_handler_class(etcd, cors, **kw)
+def make_client_handler(etcd: EtcdServer, cors: set[str] | None = None,
+                        **kw):
+    """Reference NewClientHandler (http.go:38-53)."""
+    return _make_handler_class(etcd, "client", cors, **kw)
+
+
+def make_peer_handler(etcd: EtcdServer, **kw):
+    """Reference NewPeerHandler (http.go:56-64)."""
+    return _make_handler_class(etcd, "peer", None, **kw)
 
 
 def serve(handler_class, host: str, port: int,

@@ -1,27 +1,38 @@
-"""CLI entry point (reference main.go; the port's copy of the co-hosted
-and distributed modes of ``etcd_tpu/cli.py``): etcd-compatible flags
-with ETCD_* env fallback.
+"""CLI entry point (reference main.go; the port's copy of
+``etcd_tpu/cli.py``): etcd-compatible flags with ETCD_* env fallback;
+etcd mode or proxy mode.
 
-Run as ``python -m etcd_tpu_torch.cli --cohosted-groups G
---cohosted-members M --data-dir DIR``: G raft groups of M members, their
-consensus batched on the card, behind the standard /v2 client API
-(namespace = first path segment).  Or as ``--dist-slot N --dist-peers
+Run as ``python -m etcd_tpu_torch.cli --name n0 --initial-cluster
+n0=http://...,n1=http://...,n2=http://... --data-dir DIR`` for the
+classic single-group server (reference startEtcd): one Raft group
+replicated over the members of ``--initial-cluster``, peers on /raft,
+the v2 client API on the client URLs.  Or as ``--cohosted-groups G
+--cohosted-members M``: G raft groups of M members, their consensus
+batched on the card, behind the standard /v2 client API (namespace =
+first path segment).  Or as ``--dist-slot N --dist-peers
 URL0,URL1,URL2 [--cohosted-groups G]``: this process is member slot N
 of G groups whose other members run on the hosts named by
-``--dist-peers`` (server/distserver.py).
+``--dist-peers`` (server/distserver.py).  ``--proxy on|readonly``
+runs the stateless proxy over the cluster's URLs (or the ones
+``--discovery`` names); ``--discovery URL`` bootstraps the classic
+cluster from a discovery registry.
+
+Every tier's client URLs serve through the event-driven front door
+(``server/frontdoor.py``) unless ``--frontdoor off`` (or
+``ETCD_FRONTDOOR=off``) asks for the threaded server; TLS listeners
+fall back to the threaded server, as in the reference.
 
 The device is CUDA; ``ETCD_TORCH_DEVICE`` names another (``cpu`` runs
 the plain torch versions on the host, for tests).  Without CUDA and
-without that variable the CLI exits 1 with the error.
-``--cohosted-mesh-devices N`` / ``--dist-mesh-devices N`` split the group
-batch over the first N local devices (the CUDA devices; on the CPU, its
-8 virtual devices, ``parallel.mesh.VIRTUAL_CPU_DEVICES``).
+without that variable the server modes exit 1 with the error; the
+proxy needs no device.  The classic server's restart replays its WAL
+and hashes its snapshot on that device (``--storage-backend``).
+``--cohosted-mesh-devices N`` / ``--dist-mesh-devices N`` split the
+group batch over the first N local devices (the CUDA devices; on the
+CPU, its 8 virtual devices, ``parallel.mesh.VIRTUAL_CPU_DEVICES``).
 
-Not ported yet, each exiting 2 with "not ported yet": the classic
-single-group mode (``--cohosted-groups 0`` without ``--dist-slot``),
-``--dist-roles S > 0``, ``--proxy`` and ``--frontdoor on`` (the front
-door).  The port's ``--frontdoor`` therefore defaults to ``off``,
-where the reference's defaults to ``on``; the threaded server answers.
+Not ported yet, exiting 2 with "not ported yet": ``--dist-roles S > 0``
+(the role topology).
 """
 
 from __future__ import annotations
@@ -34,13 +45,20 @@ import threading
 import urllib.parse
 
 from . import __version__, default_device
-from .api import make_client_handler, serve
-from .server import DEFAULT_SNAP_COUNT
+from .api import make_client_handler, make_peer_handler, serve
+from .api.proxy import NewProxyHandler
+from .server import (
+    Cluster,
+    DEFAULT_SNAP_COUNT,
+    ServerConfig,
+    new_server,
+)
 from .utils.flags import (
     DEPRECATED_FLAGS,
     IGNORED_FLAGS,
     PROXY_VALUES,
     PROXY_VALUE_OFF,
+    PROXY_VALUE_READONLY,
     parse_cors,
     parse_ip_address_port,
     set_flags_from_env,
@@ -58,9 +76,7 @@ NOT_PORTED_EXIT = 2
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """Flag registry (reference main.go:27-99), trimmed to the co-hosted
-    and distributed modes and the flags that name a mode not ported
-    yet."""
+    """Flag registry (reference main.go:27-99)."""
     p = argparse.ArgumentParser(
         prog="etcd-tpu-torch", add_help=True,
         description="etcd on the card: highly-available key value store")
@@ -93,11 +109,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cors", default="",
                    help="Comma-separated white list of origins for CORS")
     p.add_argument("--frontdoor",
-                   default=os.environ.get("ETCD_FRONTDOOR", "off"),
+                   default=os.environ.get("ETCD_FRONTDOOR", "on"),
                    choices=["on", "off"],
-                   help="'off' (the default here) serves the client API "
-                        "from the threaded server; the event-driven "
-                        "front door ('on') is not ported yet")
+                   help="Serve the client API through the event-"
+                        "driven front door (admission control, "
+                        "per-tenant quotas, 50k-connection scale). "
+                        "'off' falls back to the threaded server")
     p.add_argument("--proxy", default=PROXY_VALUE_OFF,
                    choices=list(PROXY_VALUES))
     p.add_argument("--ca-file", default="")
@@ -115,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cohosted-groups", type=int, default=0,
                    help="Run the co-hosted multi-group server: N raft "
                         "groups batched on the card behind one /v2/keys "
-                        "endpoint (namespace = first path segment)")
+                        "endpoint (namespace = first path segment). 0 = "
+                        "classic single-group mode")
     p.add_argument("--cohosted-members", type=int, default=3,
                    help="Members per co-hosted group (default 3)")
     p.add_argument("--cohosted-mesh-devices", type=int, default=0,
@@ -231,15 +249,21 @@ def main(argv: list[str] | None = None) -> int:
 
     set_flags_from_env(parser, args, explicit)
 
+    cluster = Cluster()
+    if args.discovery:
+        # temporary self-only cluster until discovery completes
+        # (reference main.go:253-275)
+        apurls = urls_from_flags(args, "advertise_peer_urls", "peer_addr",
+                                 explicit)
+        cluster.set_from_string(
+            ",".join(f"{args.name}={u}" for u in apurls))
+    else:
+        cluster.set_from_string(args.initial_cluster)
+
     if args.proxy != PROXY_VALUE_OFF:
-        return _not_ported("--proxy", "A, the proxy")
+        return start_proxy(args, cluster, explicit)
     if args.dist_slot >= 0 and args.dist_roles:
         return _not_ported("--dist-roles", "A7, the role topology")
-    if args.dist_slot < 0 and args.cohosted_groups <= 0:
-        return _not_ported("the classic single-group mode",
-                           "A, the single-group server")
-    if args.frontdoor == "on":
-        return _not_ported("--frontdoor on", "A, the front door")
     try:
         device = default_device(os.environ.get(DEVICE_ENV) or None)
     except RuntimeError as e:
@@ -248,7 +272,9 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     if args.dist_slot >= 0:
         return start_dist(args, explicit, device)
-    return start_multigroup(args, explicit, device)
+    if args.cohosted_groups > 0:
+        return start_multigroup(args, explicit, device)
+    return start_etcd(args, cluster, explicit, device)
 
 
 def start_dist(args, explicit: set[str], device) -> int:
@@ -341,13 +367,13 @@ def start_dist(args, explicit: set[str], device) -> int:
                              explicit, client_tls.empty())
     for u in lcurls:
         host, port = _split_hostport(u)
-        serve(make_client_handler(s, cors=cors), host, port,
-              new_listener_context(client_tls))
+        _serve_client(args, s, cors, host, port,
+                      new_listener_context(client_tls))
         log.info("Listening for client requests on %s (dist slot "
                  "%d/%d, %d groups on %s)", u, args.dist_slot,
                  len(peers), g, device)
 
-    threading.Event().wait()  # pragma: no cover
+    _block_forever()
     return 0
 
 
@@ -380,14 +406,118 @@ def start_multigroup(args, explicit: set[str], device) -> int:
                              explicit, client_tls.empty())
     for u in lcurls:
         host, port = _split_hostport(u)
-        serve(make_client_handler(s, cors=cors), host, port,
-              new_listener_context(client_tls))
+        _serve_client(args, s, cors, host, port,
+                      new_listener_context(client_tls))
         log.info("Listening for client requests on %s "
                  "(%d co-hosted groups x %d members on %s)",
                  u, args.cohosted_groups, args.cohosted_members, device)
 
-    threading.Event().wait()  # pragma: no cover
+    _block_forever()
     return 0
+
+
+def start_etcd(args, cluster: Cluster, explicit: set[str],
+               device) -> int:
+    """Reference startEtcd (main.go:126-209): the classic single-group
+    server, its restart's replay and snapshot hash on ``device``."""
+    self_m = cluster.find_name(args.name)
+    if self_m is None:
+        log.error("etcd: no member with name=%r exists", args.name)
+        return 1
+
+    data_dir = args.data_dir
+    if not data_dir:
+        data_dir = f"{self_m.id}_etcd_data"
+        log.info("main: no data-dir provided, using default data-dir "
+                 "./%s", data_dir)
+    os.makedirs(data_dir, mode=0o700, exist_ok=True)
+
+    client_tls = TLSInfo(args.cert_file, args.key_file, args.ca_file)
+    peer_tls = TLSInfo(args.peer_cert_file, args.peer_key_file,
+                       args.peer_ca_file)
+
+    acurls = urls_from_flags(args, "advertise_client_urls", "addr",
+                             explicit, client_tls.empty())
+    cfg = ServerConfig(
+        name=args.name,
+        client_urls=acurls,
+        data_dir=data_dir,
+        snap_count=args.snapshot_count,
+        cluster=cluster,
+        discovery_url=args.discovery,
+        cluster_state=args.initial_cluster_state,
+        storage_backend=args.storage_backend,
+        peer_tls=peer_tls if not peer_tls.empty() else None,
+    )
+    s = new_server(cfg, device=device)
+    s.start()
+
+    cors = parse_cors(args.cors) if args.cors else None
+    ph = make_peer_handler(s)
+
+    lpurls = urls_from_flags(args, "listen_peer_urls", "peer_bind_addr",
+                             explicit, peer_tls.empty())
+    for u in lpurls:
+        host, port = _split_hostport(u)
+        serve(ph, host, port, new_listener_context(peer_tls))
+        log.info("Listening for peers on %s", u)
+
+    lcurls = urls_from_flags(args, "listen_client_urls", "bind_addr",
+                             explicit, client_tls.empty())
+    for u in lcurls:
+        host, port = _split_hostport(u)
+        _serve_client(args, s, cors, host, port,
+                      new_listener_context(client_tls))
+        log.info("Listening for client requests on %s (classic server "
+                 "on %s)", u, device)
+
+    _block_forever()
+    return 0
+
+
+def start_proxy(args, cluster: Cluster, explicit: set[str]) -> int:
+    """Reference startProxy (main.go:212-249) + discovery bootstrap
+    (main.go:253-275's glue): with --discovery set, the proxy's
+    endpoint list comes from the discovery registry instead of the
+    flag-built cluster."""
+    client_tls = TLSInfo(args.cert_file, args.key_file, args.ca_file)
+    peer_urls = cluster.peer_urls_all()
+    if args.discovery:
+        from .discovery.discovery import proxy_endpoints
+
+        discovered = proxy_endpoints(args.discovery)
+        if discovered:
+            peer_urls = discovered
+            log.info("proxy: discovered %d endpoints via %s",
+                     len(discovered), args.discovery)
+    addrs = [urllib.parse.urlsplit(u).netloc for u in peer_urls]
+    scheme = "https" if not client_tls.empty() else "http"
+    handler = NewProxyHandler(
+        addrs, scheme=scheme,
+        readonly=args.proxy == PROXY_VALUE_READONLY)
+
+    lcurls = urls_from_flags(args, "listen_client_urls", "bind_addr",
+                             explicit, client_tls.empty())
+    for u in lcurls:
+        host, port = _split_hostport(u)
+        serve(handler, host, port, new_listener_context(client_tls))
+        log.info("Listening for client requests on %s", u)
+
+    _block_forever()
+    return 0
+
+
+def _serve_client(args, s, cors, host: str, port: int, ssl_context):
+    """One client listener: the event-driven front door by default,
+    the threaded server with --frontdoor=off (or under TLS, where the
+    front door itself falls back)."""
+    if args.frontdoor == "on":
+        from .server.frontdoor import serve_frontdoor
+
+        return serve_frontdoor(s, host, port, ssl_context=ssl_context,
+                               cors=cors)
+    return serve(make_client_handler(s, cors=cors), host, port,
+                 ssl_context)
 
 
 def _local_mesh(n: int, groups: int, device):
@@ -410,6 +540,10 @@ def _local_mesh(n: int, groups: int, device):
 def _split_hostport(u: str) -> tuple[str, int]:
     parsed = urllib.parse.urlsplit(u)
     return parsed.hostname or "", parsed.port or 0
+
+
+def _block_forever() -> None:  # pragma: no cover
+    threading.Event().wait()
 
 
 if __name__ == "__main__":

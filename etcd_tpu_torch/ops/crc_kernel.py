@@ -107,6 +107,16 @@ def device_crc32c(data, chunk: int = CHUNK, device=None) -> int:
     return (total ^ inv ^ _MASK32) & _MASK32
 
 
+def warm_device(device=None) -> None:
+    """The card's first use, made now: its context, the raw-CRC
+    kernel's load and one hash of a one-chunk blob on
+    ``default_device(device)``.  A server calls it at start, so that
+    :func:`auto_crc32c`'s first race, run under its apply loop at the
+    first large snapshot, pays none of that.  A device that fails
+    raises."""
+    device_crc32c(bytes(CHUNK), device=device)
+
+
 # Measured backend policy: the device hash must never be the slowest
 # available path.  Snapshot blobs are built host-side, so the device
 # path pays a full H2D transfer; whether that amortizes depends on the

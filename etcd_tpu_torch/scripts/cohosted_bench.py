@@ -26,8 +26,10 @@ calls and holds:
   native CRC; a snapshot whose store holds at least 4 MiB of keys), and
   one server construction on a copy of it per ``--storage-backend``.
 - :func:`cli`: ``python -m etcd_tpu_torch.cli --cohosted-groups G`` as a
-  subprocess: PUTs and GETs over HTTP, ``/v2/machines``, a kill by PID,
-  and a restart on the same dir with ``--storage-backend tpu``.
+  subprocess, serving through its default listener, the front door:
+  PUTs and GETs over HTTP, ``/v2/machines``, ``/v2/stats/frontdoor``, a
+  kill by PID, and a restart on the same dir with ``--storage-backend
+  tpu``.
 
 Each phase takes ``device`` (CUDA unless the caller passes ``"cpu"``)
 and its sizes, so the tests run them on the CPU at a small size.
@@ -464,16 +466,17 @@ def reset_launches() -> None:
     crc_cuda.raw_crc_cuda.launches = 0
     crc_cuda.raw_crc_cuda.launches_by = dict.fromkeys(
         crc_cuda.raw_crc_cuda.launches_by, 0)
+    crc_cuda.raw_crc_cuda.largest = (0, 0)
 
 
-def restart(src: str, backend: str, g: int = 10_000, m: int = 5,
-            device=None, records: int | None = None) -> dict:
-    """Construct ``MultiGroupServer`` on a copy of ``src`` with
-    ``storage_backend=backend`` (construction IS the restart): seconds,
-    records/s, the lane the router took, raw-CRC kernel launches, and
-    the restarted server's index, frontier and store bytes."""
-    dev = default_device(device)
-    d = tempfile.mkdtemp(prefix=f"cohosted_restart_{backend}_")
+@contextlib.contextmanager
+def timed_restart(src: str, backend: str, dev: torch.device, build):
+    """``build(dir)`` on a copy of ``src`` (construction IS the
+    restart), timed with the raw-CRC launch count reset before it.
+    Yields the server and its seconds, launches, the lane the router
+    took and ``auto_crc32c``'s race outcome; the copy is removed after
+    the block."""
+    d = tempfile.mkdtemp(prefix=f"restart_{backend}_")
     try:
         dst = os.path.join(d, "data")
         shutil.copytree(src, dst)
@@ -481,37 +484,48 @@ def restart(src: str, backend: str, g: int = 10_000, m: int = 5,
         _sync(dev)
         reset_launches()
         t0 = time.perf_counter()
-        s = MultiGroupServer(dst, g=g, m=m, storage_backend=backend,
-                             device=dev)
+        s = build(dst)
         _sync(dev)
         secs = time.perf_counter() - t0
-        launches = crc_cuda.raw_crc_cuda.launches
-        try:
-            decision = get_policy().decisions.get("restart")
-            out = {"backend": backend, "seconds": secs,
-                   "records_per_s": (records or 0) / secs,
-                   "lane": decision["route"] if decision else "host",
-                   "why": decision["why"] if decision else
-                   "--storage-backend host", "launches": launches,
-                   "device_hash_wins": device_hash_wins(),
-                   "raft_index": s.raft_index,
-                   "frontier": s.applied.copy(),
-                   "store": s.store.save(), "server": s}
-        finally:
-            s.stop()
-        return out
+        decision = get_policy().decisions.get("restart")
+        yield s, {"backend": backend, "seconds": secs,
+                  "launches": crc_cuda.raw_crc_cuda.launches,
+                  "lane": decision["route"] if decision else "host",
+                  "why": decision["why"] if decision else
+                  "--storage-backend host",
+                  "device_hash_wins": device_hash_wins()}
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
 
-def snapshot_load(src: str, device=None) -> dict:
-    """``Snapshotter.load`` of ``src``'s snapshot through
-    ``auto_crc32c`` on ``device`` alone: seconds, kernel launches and
-    the outcome of ``auto_crc32c``'s one-time race (None before it has
-    run; the race's own launches count in the call that runs it)."""
+def restart(src: str, backend: str, g: int = 10_000, m: int = 5,
+            device=None, records: int | None = None) -> dict:
+    """Construct ``MultiGroupServer`` on a copy of ``src`` with
+    ``storage_backend=backend`` (:func:`timed_restart`): its numbers,
+    records/s, and the restarted server's index, frontier and store
+    bytes."""
     dev = default_device(device)
-    ss = Snapshotter(os.path.join(src, "snap"),
-                     crc_fn=functools.partial(auto_crc32c, device=dev))
+    with timed_restart(src, backend, dev, lambda d: MultiGroupServer(
+            d, g=g, m=m, storage_backend=backend, device=dev)) as (s, out):
+        try:
+            out.update(records_per_s=(records or 0) / out["seconds"],
+                       raft_index=s.raft_index, frontier=s.applied.copy(),
+                       store=s.store.save(), server=s)
+        finally:
+            s.stop()
+    return out
+
+
+def snapshot_load(src: str, device=None, backend: str = "auto") -> dict:
+    """``Snapshotter.load`` of ``src``'s snapshot alone with the hash a
+    server gives it under ``backend`` (``auto_crc32c`` on ``device``
+    unless ``host``): seconds, kernel launches and the outcome of
+    ``auto_crc32c``'s one-time race (None before it has run; the race's
+    own launches count in the call that runs it)."""
+    dev = default_device(device)
+    ss = Snapshotter(os.path.join(src, "snap"), crc_fn=None
+                     if backend == "host" else
+                     functools.partial(auto_crc32c, device=dev))
     _sync(dev)
     reset_launches()
     t0 = time.perf_counter()
@@ -524,12 +538,17 @@ def snapshot_load(src: str, device=None) -> dict:
 
 # -- the normal entry point ---------------------------------------------------
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct loopback ports free now."""
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
 
 
 def _http(method: str, url: str, body: bytes | None = None):
@@ -543,30 +562,50 @@ def _http(method: str, url: str, body: bytes | None = None):
         return e.code, e.read()
 
 
-def _spawn(args: list[str], env: dict, port: int, deadline_s: float):
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "etcd_tpu_torch.cli", *args], cwd=REPO,
-        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-        text=True)
-    t0 = time.perf_counter()
+def log_tail(log: str, n: int = 3000) -> str:
+    with open(log, "rb") as f:
+        return f.read()[-n:].decode(errors="replace")
+
+
+def start_cli(args: list[str], env: dict, log: str):
+    """``python -m etcd_tpu_torch.cli`` with ``args``, its output
+    appended to ``log``."""
+    with open(log, "ab") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "etcd_tpu_torch.cli", *args], cwd=REPO,
+            env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def wait_listen(proc, port: int, deadline_s: float, log: str,
+                t0: float | None = None) -> float:
+    """Seconds from ``t0`` (default: now) until ``port`` accepts;
+    raises with ``log``'s tail if ``proc`` exits or the deadline
+    passes first (killing it then)."""
+    t0 = time.perf_counter() if t0 is None else t0
     while time.perf_counter() - t0 < deadline_s:
         if proc.poll() is not None:
             raise RuntimeError(f"cli exited {proc.returncode}: "
-                               f"{proc.stderr.read()[-3000:]}")
+                               f"{log_tail(log)}")
         try:
             socket.create_connection(("127.0.0.1", port), 0.2).close()
-            return proc, time.perf_counter() - t0
+            return time.perf_counter() - t0
         except OSError:
             time.sleep(0.05)
-    _kill(proc)
-    raise RuntimeError("cli never listened")
+    kill(proc)
+    raise RuntimeError(f"cli never listened: {log_tail(log)}")
 
 
-def _kill(proc) -> int:
-    os.kill(proc.pid, signal.SIGKILL)
-    rc = proc.wait(timeout=60)
-    proc.stderr.close()
-    return rc
+def _spawn(args: list[str], env: dict, port: int, deadline_s: float,
+           log: str):
+    proc = start_cli(args, env, log)
+    return proc, wait_listen(proc, port, deadline_s, log)
+
+
+def kill(proc) -> int:
+    """SIGKILL ``proc`` unless it has exited; its exit code."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGKILL)
+    return proc.wait(timeout=60)
 
 
 def cli(g: int = 10_000, m: int = 5, keys: int = 8, device: str | None = None,
@@ -581,13 +620,14 @@ def cli(g: int = 10_000, m: int = 5, keys: int = 8, device: str | None = None,
     if device is not None:
         env["ETCD_TORCH_DEVICE"] = device
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    port = _free_port()
+    port = free_ports(1)[0]
+    log = os.path.join(d, "cli.log")
     base = f"http://127.0.0.1:{port}"
     common = ["--cohosted-groups", str(g), "--cohosted-members", str(m),
-              "--frontdoor", "off", "--data-dir", os.path.join(d, "data"),
+              "--data-dir", os.path.join(d, "data"),
               "--listen-client-urls", base, "--advertise-client-urls", base]
     try:
-        proc, up_s = _spawn(common, env, port, deadline_s)
+        proc, up_s = _spawn(common, env, port, deadline_s, log)
         try:
             lats = []
             for i in range(keys):
@@ -606,12 +646,18 @@ def cli(g: int = 10_000, m: int = 5, keys: int = 8, device: str | None = None,
             if st != 200 or base not in body.decode():
                 raise RuntimeError(f"cli: /v2/machines answered {st} "
                                    f"{body!r}")
+            # the default listener is the front door (only it serves
+            # /v2/stats/frontdoor)
+            st, body = _http("GET", f"{base}/v2/stats/frontdoor")
+            if st != 200 or "admission" not in json.loads(body):
+                raise RuntimeError(f"cli: /v2/stats/frontdoor answered "
+                                   f"{st} {body!r}")
         finally:
-            rc1 = _kill(proc)
+            rc1 = kill(proc)
         if rc1 != -signal.SIGKILL:
             raise RuntimeError(f"cli: exit {rc1} after SIGKILL")
         proc, up2_s = _spawn(common + ["--storage-backend", "tpu"], env,
-                             port, deadline_s)
+                             port, deadline_s, log)
         try:
             for i in range(keys):
                 st, body = _http("GET", f"{base}/v2/keys/cli{i}/k")
@@ -619,7 +665,7 @@ def cli(g: int = 10_000, m: int = 5, keys: int = 8, device: str | None = None,
                     raise RuntimeError(f"cli restart: GET {i} answered {st} "
                                        f"{body!r}")
         finally:
-            rc2 = _kill(proc)
+            rc2 = kill(proc)
         if rc2 != -signal.SIGKILL:
             raise RuntimeError(f"cli: exit {rc2} after SIGKILL")
         return {"g": g, "m": m, "listen_s": up_s, "restart_listen_s": up2_s,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import random
+import urllib.parse
 
 from ..store import PERMANENT, Store
 from ..utils.errors import ECODE_KEY_NOT_FOUND, EtcdError
@@ -110,10 +112,38 @@ class Cluster(dict):
     def find_id(self, id: int) -> Member | None:
         return self.get(id)
 
+    def find_name(self, name: str) -> Member | None:
+        for m in self.values():
+            if m.name == name:
+                return m
+        return None
+
     def add(self, m: Member) -> None:
         if self.find_id(m.id) is not None:
             raise ValueError(f"member exists with identical ID {m!r}")
         self[m.id] = m
+
+    def pick(self, id: int) -> str:
+        """Random peer address for a member (cluster.go:52-63)."""
+        m = self.find_id(id)
+        if m is None or not m.peer_urls:
+            return ""
+        return random.choice(m.peer_urls)
+
+    def set_from_string(self, s: str) -> None:
+        """Parse 'name1=http://...,name2=http://...'
+        (reference cluster.go:66-85)."""
+        self.clear()
+        # keep_blank_values so "name=" surfaces to the empty-URL
+        # guard below instead of silently parsing to an empty cluster
+        v = urllib.parse.parse_qs(s.replace(",", "&"),
+                                  strict_parsing=False,
+                                  keep_blank_values=True)
+        for name, urls in v.items():
+            if not urls or any(u == "" for u in urls):
+                raise ValueError(f"empty URL given for {name!r}")
+            m = new_member(name, sorted(urls))
+            self.add(m)
 
     def __str__(self) -> str:
         sl = []
@@ -121,6 +151,15 @@ class Cluster(dict):
             for u in m.peer_urls:
                 sl.append(f"{m.name}={u}")
         return ",".join(sorted(sl))
+
+    def ids(self) -> list[int]:
+        return sorted(self.keys())
+
+    def peer_urls_all(self) -> list[str]:
+        out = []
+        for m in self.values():
+            out.extend(m.peer_urls)
+        return sorted(out)
 
     def client_urls_all(self) -> list[str]:
         out = []

@@ -39,8 +39,6 @@ the reference in these points only:
 - snapshots hash through ``ops.crc_kernel.auto_crc32c`` on the
   server's device (no silent host fallback), and streamed snapshot
   chunks verify through ``ChunkVerifier`` on that device;
-- :data:`LISTEN_BACKLOG` is this module's own constant (the front
-  door, which owns it in the reference, is not ported yet);
 - the sampling profiler, the time-series ring and the SLO verdict
   (``/mraft/obs/timeseries``, ``/mraft/obs/slo``) are not ported yet;
   those two endpoints answer 404;
@@ -114,6 +112,7 @@ from ..wire.distmsg import (
 )
 from ..wire.requests import Info, Request
 from .distpipe import AppendPipeline
+from .frontdoor import LISTEN_BACKLOG
 from .multigroup import TICK_INTERVAL, group_of
 from .peerlink import KeepAlivePool, PipeChannel
 from .readindex import (
@@ -134,10 +133,6 @@ from .server import (
 )
 
 log = logging.getLogger(__name__)
-
-#: listen backlog of the peer/batch listener (the reference takes it
-#: from its front door, which the port does not have yet)
-LISTEN_BACKLOG = 1024
 
 # Peer-tier read endpoints (linearizable read path)
 READ_INDEX_PATH = "/mraft/readindex"

@@ -143,3 +143,15 @@ class EtcdNoSpace(EtcdError):
     def __init__(self, cause: str = "", index: int = 0):
         super().__init__(ECODE_NO_SPACE, cause, index)
 
+
+class EtcdOverCapacity(EtcdError):
+    """Typed admission-control rejection: the front door shed this
+    request (tenant token bucket / inflight quota or a global ceiling
+    exhausted).  ``retry_after`` is the server's pacing hint in
+    seconds; the HTTP layer surfaces it as a ``Retry-After`` header on
+    the 429 so shedding is an *answer*, never a timeout."""
+
+    def __init__(self, cause: str = "", index: int = 0,
+                 retry_after: float = 1.0):
+        super().__init__(ECODE_OVER_CAPACITY, cause, index)
+        self.retry_after = max(0.0, float(retry_after))

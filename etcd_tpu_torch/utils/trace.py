@@ -143,7 +143,8 @@ class Tracer:
 
     def snapshot(self) -> dict:
         out = {}
-        for (name,), hist in self._reg.children(_SPAN_FAMILY):
+        for (name,), hist in self._reg.family(
+                _SPAN_FAMILY).children():
             count, total, mx, ring = hist.ring_stats()
             if not ring:
                 continue
@@ -168,7 +169,7 @@ class Tracer:
         self._stages = {}
         for fam in (_SPAN_FAMILY, "etcd_stage_seconds",
                     "etcd_trace_spans_total"):
-            self._reg.clear(fam)
+            self._reg.family(fam).clear()
 
 
 #: process-wide default tracer: servers and replay paths record here

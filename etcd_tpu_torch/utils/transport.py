@@ -33,6 +33,18 @@ class TLSInfo:
             ctx.load_verify_locations(self.ca_file)
         return ctx
 
+    def client_context(self) -> ssl.SSLContext:
+        """ClientConfig (listener.go:114-135)."""
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        if self.cert_file:
+            ctx.load_cert_chain(self.cert_file, self.key_file)
+        if self.ca_file:
+            ctx.load_verify_locations(self.ca_file)
+        else:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        return ctx
+
 
 def new_listener_context(info: TLSInfo) -> ssl.SSLContext | None:
     """None for plain HTTP (reference NewListener, listener.go:14-30)."""

@@ -1,17 +1,19 @@
-"""Hand-rolled protobuf wire codec for the WAL's record types.
+"""Hand-rolled protobuf wire codec for the WAL's record types and the
+Raft peer messages.
 
-The port's own copy of the part of ``etcd_tpu/wire/proto.py`` the WAL,
-its replay lanes, the snapshotter and the co-hosted server use: the
-varint primitives, ``Entry``, ``HardState``, ``Record``, ``Snapshot``,
-``ConfChange``, ``SnapPb`` and the multi-group ``GroupEntry`` envelope,
-with the same fixed field emission order (gogoproto ``nullable=false``:
-every field is written, even when zero), so WAL and snapshot files
-written by either package are byte-equal:
+The port's own copy of ``etcd_tpu/wire/proto.py``: the varint
+primitives, ``Entry``, ``HardState``, ``Record``, ``Snapshot``,
+``Message``, ``ConfChange``, ``SnapPb`` and the multi-group
+``GroupEntry`` envelope, with the same fixed field emission order
+(gogoproto ``nullable=false``: every field is written, even when zero),
+so WAL and snapshot files and /raft messages written by either package
+are byte-equal:
 
 - ``Entry``      reference raft/raftpb/raft.proto:16-21
 - ``HardState``  raft.proto:44-48
 - ``Record``     wal/walpb/record.proto:10-14
 - ``Snapshot``   raft.proto:23-29
+- ``Message``    raft.proto:31-42
 - ``SnapPb``     snap/snappb/snap.proto
 
 Unmarshaling is a permissive field-number dispatch (any order, unknown
@@ -128,6 +130,29 @@ ENTRY_CONF_CHANGE = 1
 CONF_CHANGE_ADD_NODE = 0
 CONF_CHANGE_REMOVE_NODE = 1
 
+# Raft message types (reference raft/raft.go:17-27)
+MSG_HUP = 0
+MSG_BEAT = 1
+MSG_PROP = 2
+MSG_APP = 3
+MSG_APP_RESP = 4
+MSG_VOTE = 5
+MSG_VOTE_RESP = 6
+MSG_SNAP = 7
+MSG_DENIED = 8
+
+MSG_NAMES = (
+    "msgHup",
+    "msgBeat",
+    "msgProp",
+    "msgApp",
+    "msgAppResp",
+    "msgVote",
+    "msgVoteResp",
+    "msgSnap",
+    "msgDenied",
+)
+
 
 # ---------------------------------------------------------------------------
 # messages
@@ -202,6 +227,9 @@ class HardState:
             else:
                 pos = _skip_field(data, pos, wt)
         return s
+
+
+EMPTY_HARD_STATE = HardState()
 
 
 def is_empty_hard_state(st: HardState) -> bool:
@@ -298,6 +326,78 @@ class Snapshot:
     def clone(self) -> "Snapshot":
         return Snapshot(self.data, list(self.nodes), self.index, self.term,
                         list(self.removed_nodes))
+
+
+@dataclass(slots=True)
+class Message:
+    type: int = 0
+    to: int = 0
+    from_: int = 0
+    term: int = 0
+    log_term: int = 0
+    index: int = 0
+    entries: list[Entry] = field(default_factory=list)
+    commit: int = 0
+    snapshot: Snapshot = field(default_factory=Snapshot)
+    reject: bool = False
+
+    def marshal(self) -> bytes:
+        buf = bytearray()
+        _tagged_varint(buf, 0x08, self.type)
+        _tagged_varint(buf, 0x10, self.to)
+        _tagged_varint(buf, 0x18, self.from_)
+        _tagged_varint(buf, 0x20, self.term)
+        _tagged_varint(buf, 0x28, self.log_term)
+        _tagged_varint(buf, 0x30, self.index)
+        for e in self.entries:
+            _tagged_bytes(buf, 0x3A, e.marshal())
+        _tagged_varint(buf, 0x40, self.commit)
+        _tagged_bytes(buf, 0x4A, self.snapshot.marshal())
+        _tagged_varint(buf, 0x50, 1 if self.reject else 0)
+        return bytes(buf)
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Message":
+        m = cls()
+        pos = 0
+        while pos < len(data):
+            fnum, wt, pos = _tag(data, pos)
+            if fnum == 1:
+                _expect_wt(fnum, wt, 0)
+                m.type, pos = uvarint(data, pos)
+            elif fnum == 2:
+                _expect_wt(fnum, wt, 0)
+                m.to, pos = uvarint(data, pos)
+            elif fnum == 3:
+                _expect_wt(fnum, wt, 0)
+                m.from_, pos = uvarint(data, pos)
+            elif fnum == 4:
+                _expect_wt(fnum, wt, 0)
+                m.term, pos = uvarint(data, pos)
+            elif fnum == 5:
+                _expect_wt(fnum, wt, 0)
+                m.log_term, pos = uvarint(data, pos)
+            elif fnum == 6:
+                _expect_wt(fnum, wt, 0)
+                m.index, pos = uvarint(data, pos)
+            elif fnum == 7:
+                _expect_wt(fnum, wt, 2)
+                b, pos = _bytes_field(data, pos)
+                m.entries.append(Entry.unmarshal(b))
+            elif fnum == 8:
+                _expect_wt(fnum, wt, 0)
+                m.commit, pos = uvarint(data, pos)
+            elif fnum == 9:
+                _expect_wt(fnum, wt, 2)
+                b, pos = _bytes_field(data, pos)
+                m.snapshot = Snapshot.unmarshal(b)
+            elif fnum == 10:
+                _expect_wt(fnum, wt, 0)
+                v, pos = uvarint(data, pos)
+                m.reject = bool(v)
+            else:
+                pos = _skip_field(data, pos, wt)
+        return m
 
 
 

@@ -1,11 +1,19 @@
-"""``python -m etcd_tpu_torch.cli``, by subprocess: the co-hosted server
-on the CPU (``ETCD_TORCH_DEVICE=cpu``) serves a PUT and a GET over HTTP
-and restarts from its data dir; three ``--dist-slot`` processes serve a
-3-host cluster; without CUDA and without that variable it exits non-zero
-naming CUDA; the modes not ported yet exit 2 (the front door by
-subprocess, also with a mesh flag beside it, the others, ``--dist-roles``
-among them, also beside ``--dist-mesh-devices``, through ``main``).  The
-mesh flags themselves are tested in tests/test_torch_mesh_servers.py."""
+"""``python -m etcd_tpu_torch.cli``, by subprocess, on the CPU
+(``ETCD_TORCH_DEVICE=cpu``): the co-hosted server serves a PUT and a GET
+over HTTP and restarts from its data dir; three ``--dist-slot``
+processes serve a 3-host cluster; both answer through the front door by
+default (``/v2/stats/frontdoor``), also with a mesh flag beside
+``--frontdoor on``; three classic single-group processes started with
+the reference's defaults (no mode flag) replicate a PUT to every member;
+a classic cluster of two JAX-package processes and one port process
+replicates over /raft; ``--proxy on`` and ``--proxy readonly`` pass or
+refuse writes; ``--discovery`` bootstraps a classic member from a
+registry served by a port server, and a proxy finds its endpoints
+there; with default flags the CLI's client listener is the front door,
+not the threaded server.  Without CUDA and without that variable it
+exits non-zero naming CUDA; ``--dist-roles`` still exits 2 ("not ported
+yet"), also beside ``--dist-mesh-devices``.  The mesh flags themselves
+are tested in tests/test_torch_mesh_servers.py."""
 
 import json
 import os
@@ -102,6 +110,7 @@ def test_cli_serves_put_and_get_on_the_cpu(tmp_path):
         with urllib.request.urlopen(f"{base}/v2/keys/app/k",
                                     timeout=60) as r:
             assert json.loads(r.read())["node"]["value"] == "hello"
+        _assert_front_door(base)  # the default listener
     finally:
         _stop(proc)
 
@@ -115,16 +124,100 @@ def test_cli_without_cuda_exits_naming_cuda(tmp_path):
     assert "CUDA" in r.stderr
 
 
+def _get(url: str, timeout: float = 60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def _put(base: str, key: str, value: str, timeout: float = 60):
+    req = urllib.request.Request(f"{base}/v2/keys/{key}",
+                                 data=f"value={value}".encode(),
+                                 method="PUT")
+    req.add_header("Content-Type", "application/x-www-form-urlencoded")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _assert_front_door(base: str) -> None:
+    """The listener is the front door: only it serves
+    /v2/stats/frontdoor."""
+    st, _, body = _get(f"{base}/v2/stats/frontdoor")
+    assert st == 200 and "admission" in json.loads(body)
+
+
 @pytest.mark.parametrize("args", [
     ["--cohosted-groups", "4", "--frontdoor", "on"],
     ["--cohosted-groups", "4", "--cohosted-mesh-devices", "2",
      "--frontdoor", "on"],
 ])
 def test_cli_front_door_and_mesh_exit_2(tmp_path, args):
-    r = _cli([*args, "--data-dir", str(tmp_path / "d")],
-             _env(ETCD_TORCH_DEVICE="cpu"))
-    assert r.returncode == 2, r.stderr
-    assert "not ported yet" in r.stderr
+    """``--frontdoor on`` (once not ported, exiting 2) now serves the
+    co-hosted tier through the front door, also beside a mesh flag."""
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "etcd_tpu_torch.cli", *args,
+         "--data-dir", str(tmp_path / "d"),
+         "--listen-client-urls", base, "--advertise-client-urls", base],
+        env=_env(ETCD_TORCH_DEVICE="cpu"), cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        _wait_port(port, proc)
+        assert _put(base, "app/k", "fd")[0] == 201
+        assert json.loads(_get(f"{base}/v2/keys/app/k")[2])["node"][
+            "value"] == "fd"
+        _assert_front_door(base)
+    finally:
+        _stop(proc)
+
+
+def _classic(tmp_path, names, idx: int, peer_ports, client_ports, *extra,
+             module="etcd_tpu_torch.cli", env=None):
+    """One classic member process of ``names`` with the reference's
+    defaults: only the name, the cluster, the URLs and the data dir."""
+    ic = ",".join(f"{n}=http://127.0.0.1:{p}"
+                  for n, p in zip(names, peer_ports))
+    peer = f"http://127.0.0.1:{peer_ports[idx]}"
+    client = f"http://127.0.0.1:{client_ports[idx]}"
+    return subprocess.Popen(
+        [sys.executable, "-m", module, "--name", names[idx],
+         "--initial-cluster", ic, "--data-dir",
+         str(tmp_path / names[idx]),
+         "--listen-peer-urls", peer, "--advertise-peer-urls", peer,
+         "--listen-client-urls", client, "--advertise-client-urls", client,
+         *extra],
+        env=env or _env(ETCD_TORCH_DEVICE="cpu"), cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def _put_until_acked(base: str, key: str, value: str,
+                     deadline_s: float = 60.0) -> None:
+    deadline = time.time() + deadline_s
+    while True:  # the first election may still be running
+        try:
+            if _put(base, key, value, timeout=10)[0] in (200, 201):
+                return
+        except (OSError, urllib.error.URLError):
+            pass
+        assert time.time() < deadline, f"{key} never acked"
+        time.sleep(0.3)
+
+
+def _read_until(base: str, key: str, value: str,
+                deadline_s: float = 60.0) -> None:
+    deadline = time.time() + deadline_s
+    while True:
+        try:
+            st, _, body = _get(f"{base}/v2/keys/{key}", timeout=10)
+            if json.loads(body)["node"]["value"] == value:
+                return
+        except urllib.error.HTTPError:
+            pass
+        assert time.time() < deadline, f"{base} never read {key}"
+        time.sleep(0.2)
 
 
 @pytest.mark.parametrize("args", [
@@ -138,10 +231,173 @@ def test_cli_front_door_and_mesh_exit_2(tmp_path, args):
 ])
 def test_cli_other_modes_not_ported_exit_2(tmp_path, args, capsys,
                                            monkeypatch):
+    """``--dist-roles`` still exits 2 before touching the disk; the
+    proxy and the classic mode (no mode flag), once exiting 2 here,
+    now serve: a proxy over a classic member passes a PUT, and the
+    classic member started with only ``--data-dir`` beside its URLs
+    answers through the front door."""
     monkeypatch.setenv("ETCD_TORCH_DEVICE", "cpu")
-    assert cli.main([*args, "--data-dir", str(tmp_path / "d")]) == 2
-    assert "not ported yet" in capsys.readouterr().err
-    assert not (tmp_path / "d").exists()
+    if "--dist-roles" in args:
+        assert cli.main([*args, "--data-dir", str(tmp_path / "d")]) == 2
+        assert "not ported yet" in capsys.readouterr().err
+        assert not (tmp_path / "d").exists()
+        return
+    peer, client, proxy_port = _free_port(), _free_port(), _free_port()
+    member = _classic(tmp_path, ["d"], 0, [peer], [client])
+    procs = [member]
+    try:
+        _wait_port(client, member)
+        base = f"http://127.0.0.1:{client}"
+        if args:  # the proxy, over the member's client URL
+            url = f"http://127.0.0.1:{proxy_port}"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "etcd_tpu_torch.cli", *args,
+                 "--initial-cluster", f"d={base}",
+                 "--listen-client-urls", url],
+                env=_env(), cwd=REPO, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True))
+            _wait_port(proxy_port, procs[-1])
+            base = url
+        _put_until_acked(base, "app/k", "classic")
+        _read_until(base, "app/k", "classic")
+        if not args:
+            _assert_front_door(base)
+    finally:
+        for p in procs:
+            _stop(p)
+
+
+def test_cli_classic_three_members_with_default_flags(tmp_path):
+    """The reference's default process, three times: no mode flag, no
+    --frontdoor, no --storage-backend.  A PUT through one member reads
+    back from all three, each answering through the front door; a
+    member killed and restarted with ``--storage-backend tpu`` replays
+    its WAL and reads the key back."""
+    names = ["n0", "n1", "n2"]
+    peers = [_free_port() for _ in names]
+    clients = [_free_port() for _ in names]
+    procs = [_classic(tmp_path, names, i, peers, clients)
+             for i in range(3)]
+    try:
+        for i in range(3):
+            _wait_port(clients[i], procs[i])
+        bases = [f"http://127.0.0.1:{c}" for c in clients]
+        _put_until_acked(bases[1], "app/k", "three")
+        for b in bases:
+            _read_until(b, "app/k", "three")
+            _assert_front_door(b)
+        _stop(procs[2])
+        _put_until_acked(bases[0], "app/k2", "after")
+        procs[2] = _classic(tmp_path, names, 2, peers, clients,
+                            "--storage-backend", "tpu")
+        _wait_port(clients[2], procs[2])
+        _read_until(bases[2], "app/k", "three")
+        _read_until(bases[2], "app/k2", "after")
+    finally:
+        for p in procs:
+            _stop(p)
+
+
+def test_cli_mixed_classic_cluster_over_raft(tmp_path):
+    """Two JAX-package members (``python -m etcd_tpu.cli``) and one port
+    member form one classic cluster over /raft: writes through either
+    package replicate to both."""
+    names = ["j0", "j1", "t2"]
+    peers = [_free_port() for _ in names]
+    clients = [_free_port() for _ in names]
+    jenv = _env(JAX_PLATFORMS="cpu")
+    procs = [_classic(tmp_path, names, i, peers, clients,
+                      module="etcd_tpu.cli", env=jenv) for i in range(2)]
+    procs.append(_classic(tmp_path, names, 2, peers, clients))
+    try:
+        for i in range(3):
+            _wait_port(clients[i], procs[i], deadline_s=120)
+        bases = [f"http://127.0.0.1:{c}" for c in clients]
+        _put_until_acked(bases[2], "mix/a", "from-port", 120)
+        _put_until_acked(bases[0], "mix/b", "from-jax", 120)
+        for b in bases:
+            _read_until(b, "mix/a", "from-port", 120)
+            _read_until(b, "mix/b", "from-jax", 120)
+    finally:
+        for p in procs:
+            _stop(p)
+
+
+def test_cli_discovery_and_proxy_against_a_port_server(tmp_path):
+    """A port classic member serves as the discovery registry: a member
+    started with ``--discovery`` (size 1) bootstraps from it and serves;
+    a ``--proxy on --discovery`` process reads its endpoints from the
+    registry and passes writes; ``--proxy readonly`` answers a PUT with
+    501."""
+    rp, rc = _free_port(), _free_port()
+    registry = _classic(tmp_path, ["reg"], 0, [rp], [rc])
+    procs = [registry]
+    try:
+        _wait_port(rc, registry)
+        reg = f"http://127.0.0.1:{rc}"
+        _put_until_acked(reg, "disc/_config/size", "1")
+        mp, mc = _free_port(), _free_port()
+        murl, mpeer = f"http://127.0.0.1:{mc}", f"http://127.0.0.1:{mp}"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "etcd_tpu_torch.cli", "--name", "m",
+             "--discovery", f"{reg}/disc",
+             "--data-dir", str(tmp_path / "m"),
+             "--listen-peer-urls", mpeer, "--advertise-peer-urls", mpeer,
+             "--listen-client-urls", murl,
+             "--advertise-client-urls", murl],
+            env=_env(ETCD_TORCH_DEVICE="cpu"), cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        _wait_port(mc, procs[-1])
+        _put_until_acked(murl, "app/d", "discovered")
+        _read_until(murl, "app/d", "discovered")
+        # the member registered itself; a proxy registry lists the
+        # member's client URL for the proxy to find
+        _put_until_acked(reg, "pxy/1", f"m={murl}")
+        for mode, want in (("on", 201), ("readonly", 501)):
+            pp = _free_port()
+            url = f"http://127.0.0.1:{pp}"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "etcd_tpu_torch.cli", "--proxy",
+                 mode, "--discovery", f"{reg}/pxy",
+                 "--listen-client-urls", url],
+                env=_env(), cwd=REPO, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True))
+            _wait_port(pp, procs[-1])
+            assert _put(url, f"app/p{mode}", "x")[0] == want
+            st, _, body = _get(f"{url}/v2/keys/app/d")
+            assert json.loads(body)["node"]["value"] == "discovered"
+    finally:
+        for p in procs:
+            _stop(p)
+
+
+def test_cli_default_flags_serve_through_the_front_door(tmp_path):
+    """With default flags the CLI's client listener is a ``FrontDoor``,
+    not the threaded ``_Server``; ``--frontdoor off`` gives the
+    threaded server."""
+    from etcd_tpu_torch.api.http import _Server
+    from etcd_tpu_torch.server import Cluster, ServerConfig, new_server
+    from etcd_tpu_torch.server.frontdoor import FrontDoor
+
+    c = Cluster()
+    c.set_from_string("solo=http://127.0.0.1:1")
+    s = new_server(ServerConfig(name="solo", data_dir=str(tmp_path),
+                                cluster=c), device="cpu")
+    args = cli.build_parser().parse_args([])
+    assert args.frontdoor == "on"
+    lis = cli._serve_client(args, s, None, "127.0.0.1", 0, None)
+    try:
+        assert isinstance(lis, FrontDoor) and not isinstance(lis, _Server)
+    finally:
+        lis.shutdown()
+    off = cli.build_parser().parse_args(["--frontdoor", "off"])
+    lis = cli._serve_client(off, s, None, "127.0.0.1", 0, None)
+    try:
+        assert isinstance(lis, _Server)
+    finally:
+        lis.shutdown()
+        s.storage.wal.close()
+        s.store.fanout.close()
 
 
 def test_cli_dist_slot_serves_a_three_host_cluster(tmp_path):
@@ -192,6 +448,7 @@ def test_cli_dist_slot_serves_a_three_host_cluster(tmp_path):
                 except urllib.error.HTTPError:
                     assert time.time() < deadline, f"slot {s} never read"
                     time.sleep(0.2)
+            _assert_front_door(f"http://127.0.0.1:{clients[s]}")
     finally:
         for p in procs:
             _stop(p)
