@@ -9,7 +9,9 @@ with g++, all at once, measures the rate of the 1-bit and int8
 (``etcd_tpu_torch.scripts.mma_rate``), and holds each kernel bit for bit
 against its plain torch version, the raw-CRC kernel also at rows wider
 than its 4096 bytes (L = 4097, 8192, 65536: folded from 4096-byte
-slabs).  Then it drives eight paths at full size:
+slabs).  First, before the build, a spawned child must bring CUDA up
+within 120 s (``etcd_tpu_torch.scripts.device_probe``).  Then it drives
+ten paths at full size:
 
 1. the main path, ``etcd_tpu_torch.parallel.data_plane_step``: 1,048,576
    WAL records of 256-380 bytes in 384-byte rows (BASELINE config 1,
@@ -90,14 +92,34 @@ slabs).  Then it drives eight paths at full size:
    a WAL record under tpu; then three ``python -m etcd_tpu_torch.cli
    --name nK --initial-cluster ...`` processes with the reference's
    defaults (the front door, ``--storage-backend auto``, CUDA) taking
-   12,000 PUTs of 256-byte values from 16 keep-alive connections over 64
+   10,500 PUTs of 256-byte values from 16 keep-alive connections over 64
    namespaces, past the leader's default snapshot, every acked key read
    back from every member; a burst on a rate-limited tenant shed with
    429 while the other namespaces' writes are acked, ``/metrics``,
    ``/v2/stats/frontdoor``, ``/v2/machines`` and a watch through the
    front door; ``--proxy on`` and ``--proxy readonly``; and a follower
    SIGKILLed, 1,000 PUTs on the other two, the follower restarted with
-   ``--storage-backend tpu``, caught up and read back.
+   ``--storage-backend tpu``, caught up and read back;
+9. the role-split topology (``etcd_tpu_torch.scripts.roles_bench``,
+   whose docstring has the steps): three hosts started as ``python -m
+   etcd_tpu_torch.cli --dist-slot i --dist-roles 2`` at 10,000 groups
+   each (5,000 a shard: config 4's group count over BASELINE config 2's
+   3 members) and cap 1,024 (``cli.ROLE_SHARD_CAP``), with
+   ``--snapshot-count 4000`` and ``ETCD_REPLAY_BACKEND=stream``; the
+   dist tier's load (16,000 proposals, 8 connections, windows of 512)
+   through host 0's ingest; a shard of host 2 SIGKILLed under 2,000
+   more proposals and respawned by its supervisor through the raw-CRC
+   kernel on the stream lane; then host 0's worker SIGKILLed, its
+   replacement's watch stream showing every key written around the
+   crash once; every write of every step acked; every acked key read
+   back through every ingest; the supervisors' merged observability plane; and CUDA
+   contexts in the six shard processes only.  The kernel is then held
+   against its plain version at the largest batch the shard's restart
+   launched;
+10. the soak (``etcd_tpu_torch.scripts.soak``) for 1 minute on the card
+   at its default 256 groups and snapshot count 2,000, every gate of
+   the script live (op errors, the RSS against its baseline after a
+   20 s warm-up, the WAL segment and snapshot file bounds).
 
 Each path is driven with the kernels' launch counts set to 0 just
 before it and read just after.  Prints, on its last lines: one JSON
@@ -144,7 +166,7 @@ from etcd_tpu_torch.parallel import (  # noqa: E402
 from etcd_tpu_torch.raft.batched import replication_round  # noqa: E402
 from etcd_tpu_torch.scripts import (  # noqa: E402
     classic_bench, cohosted_bench, config5_bench, crc_variants_bench,
-    dist_bench, kernel_sweep, mma_rate)
+    dist_bench, kernel_sweep, mma_rate, roles_bench)
 from etcd_tpu_torch.scripts.walgen import injected, make_wal  # noqa: E402
 from etcd_tpu_torch.snap import ChunkVerifier  # noqa: E402
 from etcd_tpu_torch.wal import WAL  # noqa: E402
@@ -182,11 +204,19 @@ DIST_CONNS, DIST_WINDOW, DIST_DEPTH, DIST_BATCH_ENTS = 8, 512, 8, 128
 MESH_SHARDS, C5_ITERS, C5_SERVE_SHARDS, C5_PUTS = 8, 10, 2, 400
 # the classic server (the default process): a restart dir of 100,000
 # snapshot keys and a 10,000-PUT WAL tail; three CLI members taking
-# 12,000 PUTs of 256 B from 16 connections over 64 namespaces, a burst
+# 10,500 PUTs of 256 B from 16 connections over 64 namespaces, a burst
 # of 500 on the rate-limited tenant, 1,000 PUTs with a member down
 CLASSIC_KEYS, CLASSIC_TAIL, CLASSIC_DIRS = 100_000, 10_000, 64
 CLASSIC_PUTS, CLASSIC_CONNS, CLASSIC_BURST, CLASSIC_EXTRA = \
-    12_000, 16, 500, 1_000
+    10_500, 16, 500, 1_000
+# the device probe's budget; the role-split topology: 3 hosts x 2 shards
+# over 10,000 groups a host, the dist tier's load, 200 keys written on
+# each side of the worker's crash; the soak (its defaults, cut to 1 min)
+PROBE_BUDGET_S = 120
+ROLE_G, ROLE_SHARDS, ROLE_SNAP_COUNT, ROLE_WATCH_KEYS = 10_000, 2, 4000, 200
+SOAK_MINUTES, SOAK_G, SOAK_SNAP_COUNT, SOAK_WARMUP_S, SOAK_REPORT_S = \
+    1, 256, 2000, 20, 10
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 # The kernels' designs, for the kernels line.
 RAW_DESIGN = ("1-bit mma.sync m16n8k256 and.popc; rows as A, packed C "
@@ -1107,6 +1137,124 @@ def classic(rng, card: str) -> dict:
             "snapshot": k_snap, "cluster": c}
 
 
+def probe() -> dict:
+    """Before the build: a spawned child must bring CUDA up within
+    ``PROBE_BUDGET_S`` (``scripts/device_probe.py``); a hang or an error
+    fails the run."""
+    r = subprocess.run(
+        [sys.executable, "-m", "etcd_tpu_torch.scripts.device_probe",
+         str(PROBE_BUDGET_S)], capture_output=True, text=True, cwd=REPO,
+        timeout=PROBE_BUDGET_S + 60)
+    line = (r.stdout.strip().splitlines() or ["{}"])[-1]
+    print(f"device probe: {line}", flush=True)
+    out = json.loads(line)
+    check(r.returncode == 0 and out.get("outcome") == "ok",
+          f"device probe: {line} {r.stderr[-1000:]}")
+    return out
+
+
+def roles(rng, card: str) -> dict:
+    """Phase 16: the role-split topology (module docstring, path 9), and
+    the raw-CRC kernel at the largest batch the respawned shard's
+    restart launched."""
+    torch.cuda.empty_cache()
+    r = roles_bench.run(groups=ROLE_G, shards=ROLE_SHARDS,
+                        total=DIST_TOTAL, extra=DIST_EXTRA,
+                        conns=DIST_CONNS, window=DIST_WINDOW,
+                        snap_count=ROLE_SNAP_COUNT,
+                        watch_keys=ROLE_WATCH_KEYS, gpu_check=True)
+    rs = r["shard_restart"]
+    check(r["device"] == "cuda", f"the shards ran on {r['device']}")
+    check(rs["lane"] == "stream" and rs["raw_crc_launches"] > 0,
+          f"the respawned shard's restart: {rs}")
+    check(any(n > 0 for n in r["snapshots"].values()),
+          f"no shard snapshotted under the load: {r['snapshots']}")
+    for name in ("load", "load_one_down"):
+        x = r[name]
+        print(f"roles {name}: {x['acked']} of {x['proposals']} proposals "
+              f"acked through host 0's ingest in {x['seconds']} s = "
+              f"{x['acked_writes_per_s']} acked writes/s; client ack p50 "
+              f"{x['ack_p50_ms']} ms, p99 {x['ack_p99_ms']} ms; refused "
+              f"{x['refused']} [{card}]", flush=True)
+    print(f"roles: 3 hosts x (ingest + worker + {ROLE_SHARDS} shards) of "
+          f"{ROLE_G} groups, cap {r['cap']}, up in {r['start_s']} s; per-role CPU s "
+          f"{r['per_role_cpu_s']}; handoff CPU share "
+          f"{r['handoff_cpu_share']}; snapshots by shard {r['snapshots']} "
+          f"[{card}]", flush=True)
+    print(f"roles: {rs['role']} of host 2 SIGKILLed and respawned: restart "
+          f"{rs['seconds']} s on lane {rs['lane']}, {rs['raw_crc_launches']} "
+          f"raw_crc launches (largest batch {rs['raw_crc_largest']}), up "
+          f"{rs['up_after_kill_s']} s after the kill, caught up in "
+          f"{rs['catch_up_s']} s [{card}]", flush=True)
+    w = r["worker_respawn"]
+    print(f"roles: host 0's worker SIGKILLed; {w['written_down']} keys "
+          f"written while down, {w['written_up']} after; its replacement's "
+          f"watch stream: {w['events']} events ({w['events_host1']} on host "
+          f"1's worker, {w['committed_twice']} writes committed twice), "
+          f"{w['duplicates']} duplicates, {w['missing']} missing, "
+          f"{w['repeated_events']} events repeated; the writes' rows "
+          f"{r['worker_window']}; "
+          f"{r['read_back']} acked "
+          f"keys read back through every host's ingest after every host "
+          f"caught up in {r['catch_up_all_s']} s (reads sent again after a "
+          f"transient refusal: {r['read_retried']}, first errors "
+          f"{r['read_errors']}); groups led by host/shard "
+          f"{r['groups_led']} [{card}]", flush=True)
+    print(f"roles: merged SLO verdict {r['slo']}; ingest /v2/stats/slo "
+          f"{r['ingest_slo']}; merged windowed {r['merged_windowed']}; "
+          f"merged acked/s over 120 s {r['merged_acked_per_s_120s']}; "
+          f"etcd_role_up {r['role_up']}; profile domains "
+          f"{r['profile_domains']}", flush=True)
+    cx = r["cuda_contexts"]
+    print(f"roles: CUDA contexts (nvidia-smi pid, memory) {cx['before']} "
+          f"before the cluster, {cx['during']} during it; PIDs mapping the "
+          f"card {cx['pids_mapping_the_card']} = the shards' "
+          f"{r['shard_pids']}; ingest, worker and supervisor PIDs "
+          f"{r['other_pids']}; step seconds {r['steps_s']}", flush=True)
+    n, length = rs["raw_crc_largest"]
+    k = kernel_at(torch.from_numpy(records(rng, n, length)).cuda(), reps=20)
+    check(k["max_abs_err"] == 0, f"raw_crc != plain at {k['shape']}")
+    print(f"raw_crc at the respawned shard's largest batch {k['shape']}: "
+          f"{k['ms']} ms, bound {k['bound_ms']} ms, plain {k['plain_ms']} "
+          f"ms [{card}]", flush=True)
+    print(json.dumps({"roles": {
+        "acked_writes_per_s": r["load"]["acked_writes_per_s"],
+        "ack_p50_ms": r["load"]["ack_p50_ms"],
+        "ack_p99_ms": r["load"]["ack_p99_ms"],
+        "one_down_acked_writes_per_s":
+            r["load_one_down"]["acked_writes_per_s"],
+        "start_s": r["start_s"], "shard_restart": rs,
+        "worker_respawn": w, "slo": r["slo"],
+        "windowed": r["windowed"], "card": card}}), flush=True)
+    return {"run": r, "kernel": k}
+
+
+def soak(card: str) -> dict:
+    """Phase 17: the soak on the card (module docstring, path 10)."""
+    torch.cuda.empty_cache()
+    r = subprocess.run(
+        [sys.executable, "-m", "etcd_tpu_torch.scripts.soak",
+         str(SOAK_MINUTES), str(SOAK_G), str(SOAK_SNAP_COUNT),
+         "--warmup-s", str(SOAK_WARMUP_S), "--report-s", str(SOAK_REPORT_S)],
+        capture_output=True, text=True, cwd=REPO,
+        timeout=SOAK_MINUTES * 60 + 240)
+    lines = r.stdout.splitlines()
+    summaries = [json.loads(x) for x in lines if x.startswith('{"minutes"')]
+    check(summaries, f"the soak printed no summary (rc {r.returncode}): "
+          f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    sm = summaries[-1]
+    sm.pop("metrics")
+    for x in lines:
+        if x.startswith('{"t_s"'):
+            print(f"soak sample: {x}", flush=True)
+    print(f"soak: {json.dumps(sm)} [{card}]", flush=True)
+    check(r.returncode == 0 and sm["clean"], f"the soak failed its gates: "
+          f"{[x for x in lines if not x.startswith('{')][-10:]}")
+    check(sm["device"] == "cuda" and sm["snapshots_taken"]
+          and sm["rss_gated"], f"the soak's gates did not all bite: {sm}")
+    return sm
+
+
 def plain_step(buf, lens, stored, seed, state, *raft):
     """data_plane_step with the plain CRC in place of the kernel."""
     raw = crc_cuda.raw_crc_plain(buf)
@@ -1136,6 +1284,7 @@ def main() -> int:
     card = smi.splitlines()[0]
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    probe()
 
     # 1. build, every source at once
     t0 = time.perf_counter()
@@ -1309,6 +1458,9 @@ def main() -> int:
     # 15. the classic single-group server (the default process)
     reset_launches()
     classic_run = classic(rng, card)
+    # 16. the role-split topology; 17. the soak
+    roles_run = roles(rng, card)
+    soak(card)
     kernels = [{
         "name": "raw_crc", "route": "cuda",
         "source": "etcd_tpu_torch/csrc/raw_crc.cu",
@@ -1460,6 +1612,22 @@ def main() -> int:
         "snapshot_ms": classic_run["snapshot"]["ms"],
         "snapshot_plain_ms": classic_run["snapshot"]["plain_ms"],
         "snapshot_bound_ms": classic_run["snapshot"]["bound_ms"]})
+    # raw_crc on the role-split topology: the respawned shard's restart
+    # (its WAL replay on the stream lane and its snapshot load), timed at
+    # its largest batch
+    rs, k = roles_run["run"]["shard_restart"], roles_run["kernel"]
+    kernels.append({
+        "name": "raw_crc/role_shard_restart", "route": "cuda",
+        "source": "etcd_tpu_torch/csrc/raw_crc.cu",
+        "replaces": "etcd_tpu/ops/crc_pallas.py:40",
+        "launches": rs["raw_crc_launches"],
+        "max_abs_err": k["max_abs_err"], "bit_exact": k["max_abs_err"] == 0,
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "pct_of_bound": k["pct_of_bound"],
+        "library_ms": None, "design": RAW_DESIGN,
+        "rows": crc_cuda.DEFAULT_ROWS, "shape": k["shape"],
+        "lane": rs["lane"], "restart_s": rs["seconds"],
+        "catch_up_s": rs["catch_up_s"]})
     print(f"wall: {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -29,25 +29,32 @@ ported so far:
                 (``frontdoor.py``), the co-hosted multi-group server
                 (``multigroup.py``) and the distributed tier
                 (``distserver.py`` with ``distpipe.py``, ``peerlink.py``,
-                ``readindex.py``)
+                ``readindex.py``) and the role-split topology
+                (``roles.py``, ``shmring.py``)
     api/        the HTTP client and peer API, the client library and
                 the proxy (copies)
     discovery/  the discovery bootstrap (a copy)
     cli.py      ``python -m etcd_tpu_torch.cli``: the classic server by
                 default, ``--cohosted-groups G``, ``--dist-slot N
                 --dist-peers ...`` (either with ``--cohosted-mesh-devices``
-                / ``--dist-mesh-devices``), ``--proxy``, ``--discovery``
+                / ``--dist-mesh-devices``; ``--dist-roles S`` splits a dist
+                host into supervised roles), ``--proxy``, ``--discovery``
     wire/       the protobuf records, requests and the dist tier's
                 frames (copies)
     utils/      errors, fsync helpers, failpoints, backoff, the wait
-                registry, the tracer, flags, TLS (copies)
+                registry, the tracer, flags, TLS, the data dir's disk
+                footprint (copies)
     obs/        roofline accounting, the metrics registry and its
-                Prometheus text, the flight recorder, the device ledger
+                Prometheus text, the flight recorder, the device ledger,
+                the time-series ring, the SLO verdict, the cross-role
+                aggregator and the sampling profiler (with its owners
+                table)
     native.py   ctypes binding of ``native/walscan.cc`` (built with g++
                 at first use)
     scripts/    the raw-CRC variant race, the kernel sweep, the host
-                WAL builder, the co-hosted, dist, config-5 and classic
-                phases of ``chip_smoke.py``, one dist host per process
+                WAL builder, the co-hosted, dist, config-5, classic and
+                role phases of ``chip_smoke.py``, one dist host per
+                process, the soak and the device-init probe
     entry.py    example inputs, the entry point of that step and the
                 sharded dry run
     csrc/       CUDA C++ sources, built with nvcc at first use

@@ -8,8 +8,9 @@ serves /raft for protobuf raft messages.  Response headers carry
 X-Etcd-Index / X-Raft-Index / X-Raft-Term on every reply
 (http.go:331-334).  The same handlers answer for the classic server,
 the co-hosted ``MultiGroupServer`` and the ``DistServer``;
-``/v2/stats/slo`` and ``/v2/stats/timeseries`` answer 404 until the SLO
-layer and the time-series ring are ported.
+``/v2/stats/slo`` serves the SLO verdict and ``/v2/stats/timeseries``
+the process's windowed-delta ring (``obs/slo.py``,
+``obs/timeseries.py``).
 """
 
 from __future__ import annotations
@@ -561,9 +562,17 @@ class EtcdRequestHandler(BaseHTTPRequestHandler):
             from ..utils.trace import tracer
 
             body = tracer.snapshot_json()
+        elif sub == "slo":
+            # declared-objective burn-rate verdict over the
+            # windowed-delta ring
+            from ..obs import slo as _slo
+
+            body = _slo.default_verdict_json()
+        elif sub == "timeseries":
+            from ..obs import timeseries as _timeseries
+
+            body = _timeseries.start_default().snapshot_json()
         else:
-            # slo and timeseries among them: the SLO layer and the
-            # time-series ring are not ported yet
             self._reply(404, b"404 page not found\n")
             return
         self._reply(200, body,

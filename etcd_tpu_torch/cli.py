@@ -31,8 +31,13 @@ and hashes its snapshot on that device (``--storage-backend``).
 group batch over the first N local devices (the CUDA devices; on the
 CPU, its 8 virtual devices, ``parallel.mesh.VIRTUAL_CPU_DEVICES``).
 
-Not ported yet, exiting 2 with "not ported yet": ``--dist-roles S > 0``
-(the role topology).
+``--dist-slot N --dist-roles S`` serves the slot as a supervised family
+of processes (``server/roles.py``): a stateless ingest on the client
+port, an apply/watch worker on client port + m (m hosts) and S serving
+shards peering on peer port + m*s.  The supervisor resolves no device;
+the shards inherit ``ETCD_TORCH_DEVICE`` and run on CUDA unless it
+names another device.  Each shard's groups get the log the
+single-process slot gets (``ROLE_SHARD_CAP`` slots a group).
 """
 
 from __future__ import annotations
@@ -71,8 +76,13 @@ log = logging.getLogger(__name__)
 #: the device the server runs on (default: CUDA)
 DEVICE_ENV = "ETCD_TORCH_DEVICE"
 
-#: exit status of a mode or option that is not ported yet
-NOT_PORTED_EXIT = 2
+#: log slots a group on a ``--dist-roles`` shard: ``DistServer``'s
+#: default, which the single-process ``--dist-slot`` serves.  The
+#: reference's role mode passes no cap, so adding ``--dist-roles`` cut
+#: every group's log to the role parser's 64 slots; a burst of more
+#: writes than that on one group then overflows the log, and the
+#: proposals that never fit are dropped after 50 rounds.
+ROLE_SHARD_CAP = 1024
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -188,7 +198,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "whichever first")
     p.add_argument("--dist-roles", type=int, default=0, metavar="S",
                    help="Compartmentalized serving for --dist-slot "
-                        "mode (not ported yet; 0 = single process)")
+                        "mode: supervise a stateless ingest, an "
+                        "apply/watch worker and S serving-shard "
+                        "processes on this host instead of one "
+                        "in-process server (--cohosted-groups must "
+                        "divide by S; 0 = single process)")
     # v0.4.6 back-compat (main.go:87-98); values are validated as
     # strict IP:port (pkg/flags/ipaddressport.go semantics)
     p.add_argument("--addr", default=None, type=parse_ip_address_port,
@@ -218,12 +232,6 @@ def _explicit_flags(argv: list[str]) -> set[str]:
         elif a.startswith("-") and len(a) > 1:
             out.add(a[1:].split("=", 1)[0])
     return out
-
-
-def _not_ported(what: str, where: str) -> int:
-    print(f"etcd_tpu_torch: {what} is not ported yet (ROADMAP {where})",
-          file=sys.stderr)
-    return NOT_PORTED_EXIT
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -263,7 +271,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.proxy != PROXY_VALUE_OFF:
         return start_proxy(args, cluster, explicit)
     if args.dist_slot >= 0 and args.dist_roles:
-        return _not_ported("--dist-roles", "A7, the role topology")
+        # the supervisor makes no CUDA context: its shard processes
+        # resolve the device themselves (server/roles.py)
+        return start_dist(args, explicit, None)
     try:
         device = default_device(os.environ.get(DEVICE_ENV) or None)
     except RuntimeError as e:
@@ -318,6 +328,8 @@ def start_dist(args, explicit: set[str], device) -> int:
     data_dir = args.data_dir or f"{args.name}_dist{args.dist_slot}_data"
     os.makedirs(data_dir, mode=0o700, exist_ok=True)
     g = args.cohosted_groups or 64
+    if args.dist_roles:
+        return _start_dist_roles(args, explicit, peers, data_dir, g)
     client_tls = TLSInfo(args.cert_file, args.key_file, args.ca_file)
     acurls = urls_from_flags(args, "advertise_client_urls", "addr",
                              explicit, client_tls.empty())
@@ -374,6 +386,58 @@ def start_dist(args, explicit: set[str], device) -> int:
                  len(peers), g, device)
 
     _block_forever()
+    return 0
+
+
+def _start_dist_roles(args, explicit: set[str], peers: list[str],
+                      data_dir: str, g: int) -> int:
+    """Role-split dist mode (--dist-roles S): this host serves its
+    slot as a supervised family of processes — a stateless ingest on
+    the client port, an apply/watch worker on client port + m, and S
+    serving shards each peering on peer port + m*s
+    (server/roles.py).  Blocks until the supervisor is stopped."""
+    from .server import roles
+
+    if args.dist_roles < 1 or g % args.dist_roles:
+        log.error("--dist-roles=%d must be >= 1 and divide "
+                  "--cohosted-groups=%d", args.dist_roles, g)
+        return 1
+    client_tls = TLSInfo(args.cert_file, args.key_file, args.ca_file)
+    peer_tls = TLSInfo(args.peer_cert_file, args.peer_key_file,
+                       args.peer_ca_file)
+    if not client_tls.empty() or not peer_tls.empty():
+        # the shared-memory handoff and derived-port fan-out are
+        # loopback-only; the TLS story stays with the single-process
+        # server
+        log.error("--dist-roles does not support TLS")
+        return 1
+    lcurls = urls_from_flags(args, "listen_client_urls", "bind_addr",
+                             explicit, True)
+    _, client_port = _split_hostport(next(iter(lcurls)))
+    # slot 0 bootstraps a brand-new cluster only (same rule as the
+    # single-process path); "fresh" = no shard has a data dir yet
+    fresh = not os.path.exists(os.path.join(data_dir, "shard0"))
+    argv = ["--role", "supervise",
+            "--data-dir", data_dir,
+            "--slot", str(args.dist_slot),
+            "--peers", ",".join(peers),
+            "--client-port", str(client_port),
+            "--shards", str(args.dist_roles),
+            "--groups", str(g),
+            "--cap", str(ROLE_SHARD_CAP),
+            "--name", f"{args.name}-{args.dist_slot}",
+            "--election-ticks", str(args.dist_election_ticks),
+            "--lease-ticks", str(args.dist_lease_ticks),
+            "--pipeline-depth", str(args.dist_pipeline_depth),
+            "--coalesce-us", str(args.dist_coalesce_us),
+            "--flight-dir",
+            os.environ.get("ETCD_FLIGHT_DIR")
+            or os.path.join(data_dir, "trace_artifacts")]
+    if args.snapshot_count is not None:
+        argv += ["--snap-count", str(args.snapshot_count)]
+    if args.dist_slot == 0 and fresh:
+        argv.append("--bootstrap")
+    roles.main(argv)
     return 0
 
 

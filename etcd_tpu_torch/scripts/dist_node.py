@@ -6,7 +6,12 @@ Usage:
   python -m etcd_tpu_torch.scripts.dist_node --data-dir D --slot N \
       --peers http://127.0.0.1:7700,http://127.0.0.1:7701,... \
       [--groups 8] [--cap 64] [--storage-backend auto|tpu|host] \
-      [--bootstrap]
+      [--bootstrap] [--roles S --client-port P]
+
+With ``--roles S`` the slot is served by the role supervisor
+(``etcd_tpu_torch.server.roles``): an ingest on ``--client-port``, an
+apply/watch worker on client port + m and S serving shards peering on
+peer port + m*s; it prints "READY" once every role answers.
 
 The engine runs on CUDA; ``ETCD_TORCH_DEVICE`` names another device
 (``cpu`` for tests).  Without CUDA and without that variable the node
@@ -25,7 +30,6 @@ exchange batched frames on /mraft.
 import argparse
 import json
 import os
-import sys
 import time
 
 from etcd_tpu_torch.server.distserver import DistServer
@@ -58,12 +62,43 @@ def main() -> None:
     ap.add_argument("--bootstrap", action="store_true",
                     help="campaign for every group before READY")
     ap.add_argument("--roles", type=int, default=0, metavar="S",
-                    help="role-split topology (not ported yet)")
+                    help="role-split topology: supervise an "
+                         "ingest + apply/watch worker + S serving "
+                         "shard processes instead of one in-process "
+                         "server (requires --client-port)")
+    ap.add_argument("--client-port", type=int, default=None,
+                    help="ingest client port (role mode only)")
     args = ap.parse_args()
 
     if args.roles:
-        print("dist_node: --roles is not ported yet", file=sys.stderr)
-        sys.exit(2)
+        # compartmentalized serving: hand the whole slot to the role
+        # supervisor (its own module so each child re-execs into a
+        # clean process image); blocks until stopped
+        if args.client_port is None:
+            ap.error("--roles requires --client-port")
+        from etcd_tpu_torch.server import roles
+
+        argv = ["--role", "supervise",
+                "--data-dir", args.data_dir,
+                "--slot", str(args.slot),
+                "--peers", args.peers,
+                "--client-port", str(args.client_port),
+                "--shards", str(args.roles),
+                "--groups", str(args.groups),
+                "--cap", str(args.cap),
+                "--max-batch-ents", str(args.max_batch_ents),
+                "--pipeline-depth", str(args.pipeline_depth),
+                "--coalesce-us", str(args.coalesce_us),
+                "--lease-ticks", str(args.lease_ticks),
+                "--flight-dir",
+                os.environ.get("ETCD_FLIGHT_DIR")
+                or os.path.join(args.data_dir, "trace_artifacts")]
+        if args.snap_count is not None:
+            argv += ["--snap-count", str(args.snap_count)]
+        if args.bootstrap:
+            argv.append("--bootstrap")
+        roles.main(argv)
+        return
 
     from etcd_tpu_torch.ops.crc_cuda import raw_crc_cuda
     from etcd_tpu_torch.wal.backend_policy import get_policy

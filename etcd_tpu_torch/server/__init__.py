@@ -7,8 +7,10 @@ tier (``distserver.DistServer``, with its append pipeline
 ``distpipe.py``, peer links ``peerlink.py`` and linearizable read
 bookkeeping ``readindex.py``) and what they share: array-form
 GroupEntry replay (``gereplay.py``), cluster membership in the store
-(``cluster.py``) and the stats endpoints' sources (``stats.py``).  The
-role topology is not ported yet."""
+(``cluster.py``) and the stats endpoints' sources (``stats.py``); and
+the role-split topology (``roles.py``: a supervisor nursing an ingest,
+an apply/watch worker fed over the shared-memory ring ``shmring.py``,
+and serving shards, each a ``DistServer``)."""
 
 from .cluster import (
     Cluster,

@@ -39,9 +39,6 @@ the reference in these points only:
 - snapshots hash through ``ops.crc_kernel.auto_crc32c`` on the
   server's device (no silent host fallback), and streamed snapshot
   chunks verify through ``ChunkVerifier`` on that device;
-- the sampling profiler, the time-series ring and the SLO verdict
-  (``/mraft/obs/timeseries``, ``/mraft/obs/slo``) are not ported yet;
-  those two endpoints answer 404;
 - host reads of engine state go through ``obs.devledger.fetch``
   (stage ``dist.server``), so the reads a round costs are counted;
 - two durability repairs: a snapshot is saved at the WAL seq of the
@@ -774,6 +771,14 @@ class DistServer:
 
     def start(self) -> None:
         """Bind the peer listener and start the round loop."""
+        from ..obs import profiler as _profiler
+        from ..obs import timeseries as _timeseries
+
+        # always-on per-process observability: the sampling profiler
+        # and the windowed-delta ring behind /mraft/obs/timeseries
+        # (idempotent; ETCD_PROFILE_HZ=0 disables the sampler)
+        _profiler.start_default()
+        _timeseries.start_default()
         threading.Thread(target=self._publish, daemon=True).start()
         u = urlparse(self.peer_urls[self.slot])
         handler = _make_peer_handler(self)
@@ -3913,6 +3918,20 @@ def _make_peer_handler(server: DistServer):
                 # chaos_drill harvests on gate failure and
                 # scripts/trace_stitch.py merges across nodes
                 self._reply(200, server.flight.dump_json())
+            elif self.path == "/mraft/obs/timeseries":
+                # windowed-delta ring: rates and windowed percentiles
+                # over the last ETCD_TS_RETENTION steps
+                from ..obs import timeseries as _timeseries
+
+                self._reply(200,
+                            _timeseries.start_default()
+                            .snapshot_json())
+            elif self.path == "/mraft/obs/slo":
+                # declared-objective verdict: burn rates over the
+                # ring, the same body as GET /v2/stats/slo
+                from ..obs import slo as _slo
+
+                self._reply(200, _slo.default_verdict_json())
             elif self.path == "/mraft/leaders":
                 # leadership-transition trace for the chaos drill's
                 # recovery decomposition; lock-free reads of small

@@ -1,7 +1,5 @@
 """Event-driven multi-tenant front door (the port's copy of
-``etcd_tpu/server/frontdoor.py``; ``/v2/stats/slo`` and
-``/v2/stats/timeseries`` answer 404 until the SLO layer and the
-time-series ring are ported).
+``etcd_tpu/server/frontdoor.py``).
 
 The stdlib threaded HTTP server pins one thread per connection — a
 keepalive watch stream holds its thread for minutes, so 50k
@@ -1382,11 +1380,19 @@ class FrontDoor:
             from ..utils.trace import tracer
 
             body = tracer.snapshot_json()
+        elif sub == "slo":
+            # declared-objective burn-rate verdict over the
+            # windowed-delta ring
+            from ..obs import slo as _slo
+
+            body = _slo.default_verdict_json()
+        elif sub == "timeseries":
+            from ..obs import timeseries as _timeseries
+
+            body = _timeseries.start_default().snapshot_json()
         elif sub == "frontdoor":
             body = self.stats_json()
         else:
-            # slo and timeseries among them: the SLO layer and the
-            # time-series ring are not ported yet
             self._reply(conn, 404, b"404 page not found\n")
             return
         self._reply(conn, 200, body,

@@ -34,6 +34,18 @@ _SPAN_FAMILY = "etcd_span_seconds"  # catalog family backing spans
 #: wall/cpu/device columns of etcd_stage_seconds sum honestly
 _stage_tls = threading.local()
 
+#: thread ident -> innermost active stage name, published by
+#: _StageCtx enter/exit for the sampling profiler (obs/profiler.py)
+#: — a cross-thread-readable mirror of the thread-local stack (one
+#: GIL-atomic dict store per stage pass; the profiler must never
+#: touch another thread's TLS)
+_active_stages: dict[int, str] = {}
+
+
+def active_stages() -> dict[int, str]:
+    """Snapshot of {thread ident: innermost active stage name}."""
+    return dict(_active_stages)
+
 
 def note_device_seconds(dt: float) -> None:
     """Charge ``dt`` seconds of device dispatch/block time to the
@@ -75,6 +87,7 @@ class _StageCtx:
         if stack is None:
             stack = _stage_tls.stack = []
         stack.append(self)
+        _active_stages[threading.get_ident()] = self.name
         self.t0 = time.perf_counter()
         self.c0 = time.thread_time()
         return self
@@ -82,7 +95,13 @@ class _StageCtx:
     def __exit__(self, *exc):
         cpu = time.thread_time() - self.c0
         wall = time.perf_counter() - self.t0
-        _stage_tls.stack.pop()
+        stack = _stage_tls.stack
+        stack.pop()
+        tid = threading.get_ident()
+        if stack:
+            _active_stages[tid] = stack[-1].name
+        else:
+            _active_stages.pop(tid, None)
         self.tracer.record(self.name, wall)
         self.tracer.record_stage(self.name, wall, cpu, self.device_s)
         return False
@@ -221,5 +240,5 @@ def stop_profile() -> str | None:
         return path
 
 
-__all__ = ["Tracer", "maybe_start_profile", "note_device_seconds",
-           "stop_profile", "tracer"]
+__all__ = ["Tracer", "active_stages", "maybe_start_profile",
+           "note_device_seconds", "stop_profile", "tracer"]

@@ -11,9 +11,11 @@ refuse writes; ``--discovery`` bootstraps a classic member from a
 registry served by a port server, and a proxy finds its endpoints
 there; with default flags the CLI's client listener is the front door,
 not the threaded server.  Without CUDA and without that variable it
-exits non-zero naming CUDA; ``--dist-roles`` still exits 2 ("not ported
-yet"), also beside ``--dist-mesh-devices``.  The mesh flags themselves
-are tested in tests/test_torch_mesh_servers.py."""
+exits non-zero naming CUDA; ``--dist-roles 2`` serves a 2-host
+role-split cluster (a PUT through one host's ingest reads back through
+both, the stats routes answer), also beside ``--dist-mesh-devices``,
+which the role mode ignores as the reference's does.  The mesh flags
+themselves are tested in tests/test_torch_mesh_servers.py."""
 
 import json
 import os
@@ -220,6 +222,61 @@ def _read_until(base: str, key: str, value: str,
         time.sleep(0.2)
 
 
+def _roles_serve(tmp_path, args) -> None:
+    from etcd_tpu_torch.scripts.dist_bench import free_port_block
+
+    peer_base, client_base = free_port_block(4), free_port_block(6)
+    peers = ",".join(f"http://127.0.0.1:{peer_base + i}" for i in (0, 1))
+    procs = []
+    try:
+        for slot in (0, 1):
+            argv = list(args)
+            argv[argv.index("--dist-slot") + 1] = str(slot)
+            argv[argv.index("--dist-peers") + 1] = peers
+            url = f"http://127.0.0.1:{client_base + slot}"
+            # the role family logs to a file: a pipe nobody reads would
+            # fill and stall every role that writes to it
+            with open(tmp_path / f"host{slot}.log", "wb") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "etcd_tpu_torch.cli", *argv,
+                     "--data-dir", str(tmp_path / f"d{slot}"),
+                     "--listen-client-urls", url,
+                     "--advertise-client-urls", url],
+                    env=_env(ETCD_TORCH_DEVICE="cpu"), cwd=REPO,
+                    stdout=subprocess.DEVNULL, stderr=log))
+        for slot, proc in enumerate(procs):  # each host's ingest
+            deadline = time.time() + 180.0
+            while True:
+                assert proc.poll() is None, \
+                    (tmp_path / f"host{slot}.log").read_text()[-2000:]
+                try:
+                    socket.create_connection(
+                        ("127.0.0.1", client_base + slot), 0.2).close()
+                    break
+                except OSError:
+                    assert time.time() < deadline, "no ingest listened"
+                    time.sleep(0.1)
+        bases = [f"http://127.0.0.1:{client_base + i}" for i in (0, 1)]
+        _put_until_acked(bases[0], "app/k", "roles")
+        for b in bases:
+            _read_until(b, "app/k", "roles")
+            for route in ("slo", "timeseries"):
+                st, _, body = _get(f"{b}/v2/stats/{route}", timeout=10)
+                assert st == 200 and json.loads(body)
+        roles = json.loads((tmp_path / "d0" / "roles.json").read_text())
+        assert set(roles) == {"ingest", "worker", "shard0", "shard1",
+                              "supervisor"}
+    finally:
+        for p in procs:
+            p.terminate()  # the supervisor stops its roles, frees rings
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+
+
 @pytest.mark.parametrize("args", [
     ["--cohosted-groups", "4", "--dist-slot", "0", "--dist-roles", "2",
      "--dist-peers", "http://127.0.0.1:1,http://127.0.0.1:2"],
@@ -231,16 +288,15 @@ def _read_until(base: str, key: str, value: str,
 ])
 def test_cli_other_modes_not_ported_exit_2(tmp_path, args, capsys,
                                            monkeypatch):
-    """``--dist-roles`` still exits 2 before touching the disk; the
-    proxy and the classic mode (no mode flag), once exiting 2 here,
-    now serve: a proxy over a classic member passes a PUT, and the
-    classic member started with only ``--data-dir`` beside its URLs
-    answers through the front door."""
+    """Every mode once exiting 2 here now serves: ``--dist-roles 2``
+    (on two hosts: the peer URLs of ``args`` swapped for free ones) takes
+    a PUT through host 0's ingest that reads back through both hosts'
+    ingests; a proxy over a classic member passes a PUT; and the classic
+    member started with only ``--data-dir`` beside its URLs answers
+    through the front door."""
     monkeypatch.setenv("ETCD_TORCH_DEVICE", "cpu")
     if "--dist-roles" in args:
-        assert cli.main([*args, "--data-dir", str(tmp_path / "d")]) == 2
-        assert "not ported yet" in capsys.readouterr().err
-        assert not (tmp_path / "d").exists()
+        _roles_serve(tmp_path, args)
         return
     peer, client, proxy_port = _free_port(), _free_port(), _free_port()
     member = _classic(tmp_path, ["d"], 0, [peer], [client])

@@ -3,17 +3,21 @@ small size on the CPU: three ``dist_node`` processes
 (``ETCD_TORCH_DEVICE=cpu``), the load, every acked write read back from
 all three hosts, SIGKILL of slot 2, more writes, its restart under
 ``--storage-backend tpu`` (the stream lane, the kernel's plain version
-here) and its catch-up; and the numbers the phase prints."""
+here) and its catch-up; and the numbers the phase prints, the windowed
+rates and SLO verdict off the nodes' rings among them.  The role phase's
+small-size run is in ``tests/test_torch_roles.py``."""
 
 from etcd_tpu_torch.scripts import dist_bench
+
+_CPU = {"ETCD_TORCH_DEVICE": "cpu", "OMP_NUM_THREADS": "1"}
 
 
 def test_dist_phase_at_small_size(tmp_path):
     r = dist_bench.run(groups=16, cap=64, total=400, extra=60, conns=4,
-                       window=32, env_extra={"ETCD_TORCH_DEVICE": "cpu",
-                                             "OMP_NUM_THREADS": "1"},
-                       tmp=str(tmp_path))
+                       window=32, env_extra=_CPU, tmp=str(tmp_path))
     assert r["device"] == "cpu"
+    assert r["windowed"]["estimator"] == "bucket-le-upper-bound"
+    assert r["slo"]["verdict"] in ("ok", "burning", "no_data")
     load, down, rs = r["load"], r["load_one_down"], r["restart"]
     assert load["proposals"] == 400 and down["proposals"] == 60
     assert 0 < load["acked"] <= 400 and 0 < down["acked"] <= 60
@@ -33,3 +37,4 @@ def test_dist_phase_at_small_size(tmp_path):
             "dist.absorb", "dist.handle_append", "dist.vote", "dist.tick",
             "dist.install", "dist.compact", "dist.server",
             "dist.fsync_overlap"}
+
